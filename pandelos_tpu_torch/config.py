@@ -9,10 +9,10 @@ covers all of it.
 The fields are those of the JAX package's ``PipelineConfig`` that this
 package reads (its dense-backend and mesh fields are left out), plus
 ``device``.  This package runs the ``"cuda"``
-engine (the candidate engine with the lane2 exact join and the BBH
-network on the device) and the ``"oracle"`` host path; options of paths
-that are not ported yet raise :class:`NotPortedError` from
-:func:`check_ported`, naming the ROADMAP queue item that ports them.
+engine (the candidate engine with its three exact joins, and the BBH
+network on the device or on the host) and the ``"oracle"`` host path;
+options of paths that are not ported yet raise :class:`NotPortedError`
+from :func:`check_ported`, naming the ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations
@@ -46,11 +46,14 @@ class PipelineConfig:
     # Max candidate columns per row on device; the BBH path doubles it
     # until no row overflows (up to 1024).
     candidate_cap: int = 128
-    # Run the BBH network construction on device.  None and True are the
-    # same here: the host-BBH route of the device engine is not ported.
+    # Run the BBH network construction on device (None and True: on;
+    # False: the cells path, compute_cells_candidate + host BBH, which
+    # also takes over when a row's candidates pass MAX_CANDIDATE_CAP).
     device_bbh: Optional[bool] = None
-    # Exact-join kernel: "lane2" (hand-written CUDA kernel).  "lane" and
-    # "roll" are not ported.
+    # Exact-join kernel, each a hand-written CUDA kernel: "lane2" (packed
+    # lane table; falls back to "lane" when a k-mer count >= 256 or the
+    # vocabulary >= 2^23), "lane" (unpacked lane table) or "roll" (the
+    # sorted join over the padded profiles).
     join_kernel: str = "lane2"
     # Ring-sharded extraction (multi-device): not ported.
     ring_extract: bool = False
@@ -82,12 +85,15 @@ class PipelineConfig:
         return PipelineConfig(**json.loads(s))
 
 
+JOIN_KERNELS = ("lane2", "lane", "roll")
+
 # backends of the JAX package and the ROADMAP item that ports each
 _BACKEND_QUEUE = {
     "xla": "ROADMAP Queue 1 item 8 (the xla backend's in-scan join)",
     "dense": "ROADMAP Queue 1 item 8 (the dense backend)",
-    "pallas": "ROADMAP Queue 1 item 5 (compute_cells_candidate); "
-    "the device-BBH route of this engine is backend 'cuda'",
+    "pallas": "ROADMAP Queue 1 item 8 (the JAX package's backend names); "
+    "its pallas route is this package's backend 'cuda', device_bbh=False "
+    "its cells path",
     "auto": "in the JAX package 'auto' is the xla backend, ROADMAP Queue 1 "
     "item 8; the engine of this package is backend 'cuda'",
     "reference": "ROADMAP Queue 4 item 1 (the reference transcription "
@@ -121,13 +127,8 @@ def check_ported(config: PipelineConfig) -> None:
         raise NotPortedError(
             "ring_extract is not ported: ROADMAP Queue 1 item 9 (ring mode)"
         )
-    if config.join_kernel != "lane2":
-        raise NotPortedError(
-            f"join_kernel={config.join_kernel!r} is not ported: ROADMAP "
-            "Queue 1 item 8 and Queue 2 kernels 2-3"
-        )
-    if config.device_bbh is False:
-        raise NotPortedError(
-            "device_bbh=False is not ported: ROADMAP Queue 1 item 5 "
-            "(compute_cells_candidate)"
+    if config.join_kernel not in JOIN_KERNELS:
+        raise ValueError(
+            f"unknown join_kernel {config.join_kernel!r}: one of "
+            f"{JOIN_KERNELS}"
         )

@@ -1,8 +1,9 @@
-"""Candidate engine on one device: signatures, bound bits, extraction, and
-the fused flatten + lane2 join + validity step.
+"""Candidate engine on one device: signatures, bound bits, extraction,
+the fused flatten + exact join + validity step, and the cells path.
 
-The counterpart of the JAX package's ``ops/candidate.py`` for the path
-that ``compute_network_device`` runs on one device:
+The counterpart of the JAX package's ``ops/candidate.py`` on one device,
+for the passes that ``compute_network_device`` and
+:func:`compute_cells_candidate` run:
 
 1. **Signatures** (``build_signatures``): per-gene bucket masses, rounded
    up to bf16, so that for genes i, j::
@@ -19,8 +20,9 @@ that ``compute_network_device`` runs on one device:
    of every row in ascending column order, and each row's candidate
    count (rows with count > K are rerun at a larger K by the caller).
 4. **Flatten + join + validity** (``Runner.flatten_join``): the per-row
-   lists become one flat pair list; the lane2 CUDA kernel joins every
-   pair exactly; the reference's validity test is applied.
+   lists become one flat pair list; the selected CUDA join kernel
+   (``Runner.join_kernel``: lane2, lane or roll) joins every pair
+   exactly; the reference's validity test is applied.
 
 Every summand of the bound matmuls is an integer (a bf16 round-up of an
 integer is an integer) and every partial sum is < 2^24, so any f32
@@ -38,9 +40,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pandelos_tpu_torch.config import NotPortedError, PipelineConfig
+from pandelos_tpu_torch.config import PipelineConfig
+from pandelos_tpu_torch.device import configure_numerics, resolve_device
 from pandelos_tpu_torch.index import KmerIndex
-from pandelos_tpu_torch.ops.score import _round_up
+from pandelos_tpu_torch.oracle.cells import ScoreCells, cells_of_rows
+from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
 
 _PAIR_BLOCK = 128  # smallest pair capacity (the TPU kernel's pair block)
 # int8 bound-bit matrix byte cap; past this, extraction takes the
@@ -220,9 +224,26 @@ def _candidate_blocks(
     )
 
 
+def packable(index: KmerIndex) -> bool:
+    """Whether lane2 can pack ``id << 8 | count`` into one int32: every
+    count < 256 and every id < 2^23 (the padding sentinel id ==
+    vocab_size packs too)."""
+    counts = np.asarray(index.profile_counts)
+    return index.vocab_size < (1 << 23) and int(counts.max(initial=0)) < 256
+
+
+def join_kernel_for(index: KmerIndex, config) -> str:
+    """The join kernel a run takes: ``config.join_kernel``, except that
+    lane2 falls back to the lane kernel (ids and counts apart) when the
+    input cannot pack, as in the JAX package."""
+    if config.join_kernel == "lane2" and not packable(index):
+        return "lane"
+    return config.join_kernel
+
+
 class Runner:
     """Single-device counterpart of the JAX package's ``MeshRunner``: the
-    device-resident padded profiles, signatures, lane2 table and per-gene
+    device-resident padded profiles, signatures, join tables and per-gene
     depths of one index, and the extraction and flatten-join passes over
     them."""
 
@@ -237,25 +258,14 @@ class Runner:
         self.n_dev = 1
         lens_pad = np.zeros(G_pad, dtype=np.float32)
         lens_pad[: self.G] = index.kseq_lengths
-        # lane2 packs id << 8 | count into one int32: count < 256 and
-        # id < 2^23 (the padding sentinel id == vocab_size packs too)
-        self.packable = bool(
-            index.vocab_size < (1 << 23)
-            and padded.counts.size > 0
-            and int(padded.counts.max(initial=0)) < 256
-        )
-        if not self.packable:
-            raise NotPortedError(
-                "the input cannot be packed for the lane2 join (a k-mer "
-                "count >= 256 or a vocabulary >= 2^23); its exact "
-                "fallback, the banded lane kernel, is ROADMAP Queue 2 "
-                "kernel 2"
-            )
+        self.join_kernel = join_kernel_for(index, config)
         self.all_ids = self._put(padded.ids)
         self.all_counts = self._put(padded.counts)
         self.col_lens = self._put(lens_pad)
         self.sig = None
         self._all_lane2 = None
+        self._all_lane = None
+        self._all_pair = None
         self._dg = None
         self._T_cache = {}
         self.lane_D = 0
@@ -268,22 +278,61 @@ class Runner:
             self.sig = sig_mass
         return self.sig
 
+    def _lane_table(self, packed: bool):
+        from pandelos_tpu_torch.ops.lane_join import (
+            lane_depth,
+            pack_lane_device_core,
+        )
+
+        self.lane_D = lane_depth(self.index)
+        return pack_lane_device_core(
+            self.all_ids, self.all_counts, self.lane_D, packed=packed
+        )
+
     @property
     def all_lane2(self):
-        """The lane2 table [G_pad, D*128] (id << 8 | count, empty -256),
-        built on the device from the resident padded profiles."""
+        """The packed lane2 table [G_pad, D*128] (id << 8 | count, empty
+        -256), built on the device from the resident padded profiles."""
         if self._all_lane2 is None:
-            from pandelos_tpu_torch.ops.lane_join import (
-                lane_depth,
-                pack_lane_device_core,
-            )
-
-            D = lane_depth(self.index)
-            self.lane_D = D
-            self._all_lane2 = pack_lane_device_core(
-                self.all_ids, self.all_counts, D, packed=True
-            )
+            self._all_lane2 = self._lane_table(packed=True)
         return self._all_lane2
+
+    @property
+    def all_lane(self):
+        """The unpacked lane table [G_pad, 2*D*128] (ids, then counts;
+        empty slots id -1, count 0), built on the device like
+        ``all_lane2``."""
+        if self._all_lane is None:
+            self._all_lane = self._lane_table(packed=False)
+        return self._all_lane
+
+    @property
+    def all_pair(self):
+        """The pair table [G_pad, 2W] (padded ids || counts) of the roll
+        join, concatenated on the device."""
+        if self._all_pair is None:
+            from pandelos_tpu_torch.ops.pair_join import pack_profiles
+
+            self._all_pair = pack_profiles(self.all_ids, self.all_counts)
+        return self._all_pair
+
+    @property
+    def join_table(self):
+        """The table that ``join_kernel`` reads (built at first use)."""
+        if self.join_kernel == "roll":
+            return self.all_pair
+        return self.all_lane2 if self.join_kernel == "lane2" else self.all_lane
+
+    def join(self, pi, pj):
+        """Exact counters (inter, perc, tr) of the pairs (pi, pj) with
+        ``join_kernel``."""
+        from pandelos_tpu_torch.ops.lane_join import lane2_join, lane_join
+        from pandelos_tpu_torch.ops.pair_join import join_pairs_core
+
+        if self.join_kernel == "roll":
+            return join_pairs_core(self.all_pair, pi, pj)
+        fn = lane2_join if self.join_kernel == "lane2" else lane_join
+        return fn(self.join_table, self.dg, pi, pj)
 
     @property
     def dg(self):
@@ -356,14 +405,12 @@ class Runner:
 
     def flatten_join(self, grow, cand, counts, cand_cap: int, pair_cap: int):
         """Compact the (cand, counts) extraction output into a flat pair
-        list, join every pair with the lane2 kernel and apply the
+        list, join every pair with ``join_kernel`` and apply the
         reference's validity test (library.cpp:499-500, exact integer
         form).  Overflowing rows (counts > cand_cap) emit nothing.
 
         Returns [pair_cap] tensors (pi, pj, inter, perc, tr, valid);
         padding slots carry pi == pj == G (an empty profile, depth 0)."""
-        from pandelos_tpu_torch.ops.lane_join import lane2_join
-
         dev = self.device
         K = cand.shape[-1]
         gf = grow.reshape(-1)
@@ -393,7 +440,7 @@ class Runner:
         pad = torch.full((pair_cap,), self.G, dtype=torch.int32, device=dev)
         pi = torch.where(ok, gf[r_safe].to(torch.int32), pad)
         pj = torch.where(ok, cf[r_safe, s].to(torch.int32), pad)
-        inter, perc, tr = lane2_join(self.all_lane2, self.dg, pi, pj)
+        inter, perc, tr = self.join(pi, pj)
         k2f = float(self.k2)
         valid = (inter > 0) & (
             (k2f * perc >= self.col_lens[pi.long()])
@@ -403,8 +450,9 @@ class Runner:
 
 
 def get_runner(index: KmerIndex, padded, config, device) -> Runner:
-    """Runner cached on the index per (padded shape, device)."""
-    rkey = ("runner", padded.ids.shape, str(device))
+    """Runner cached on the index per (padded shape, device, join
+    kernel)."""
+    rkey = ("runner", padded.ids.shape, str(device), config.join_kernel)
     cache = index._pad_cache  # populated by pad_profiles
     runner = cache.get(rkey)
     if runner is None:
@@ -416,11 +464,16 @@ def get_runner(index: KmerIndex, padded, config, device) -> Runner:
 def work_model(
     index: KmerIndex, config: Optional[PipelineConfig] = None
 ) -> dict:
-    """Analytic device-work model of one extraction + join pass:
-    ``bound_matmul_flops`` of the bound-bit build (one [n_pos, B] x
-    [B, n_pos] matmul in T mode, two [rows, B] x [B, G_pad] otherwise)
-    and ``join_ops_per_pair``, the lane2 join's compare-and-add steps per
-    pair at the mean depth (128 lanes per (depth_a, depth_b) slot row)."""
+    """Analytic device-work model of one extraction + join pass, with the
+    JAX package's keys and values:
+
+    - ``bound_matmul_flops`` of the bound-bit build (one [n_pos, B] x
+      [B, n_pos] matmul in T mode, two [rows, B] x [B, G_pad] otherwise);
+    - ``join_ops_per_pair``: the JAX package's compare-and-rotate cost,
+      W^2 id compares at ~4 vector ops each (kept as that package
+      defines it; the roll kernel here is a sorted search);
+    - ``join_lane2_ops_per_pair``: the lane2 join's, ~mean_depth^2 slot
+      rows of 128 lanes at ~10 ops each."""
     from pandelos_tpu_torch.ops.hist import pick_buckets
     from pandelos_tpu_torch.ops.lane_join import lane_depths
 
@@ -444,7 +497,8 @@ def work_model(
             2.0 * rows * B * rows if t_mode else 4.0 * rows * B * G_pad
         ),
         "bound_bits_mode": bool(t_mode),
-        "join_ops_per_pair": 128.0 * mean_depth * mean_depth,
+        "join_ops_per_pair": float(4.0 * W * W),
+        "join_lane2_ops_per_pair": 10.0 * 128.0 * mean_depth * mean_depth,
         "signature_buckets": int(B),
         "padded_width": int(W),
         "padded_genes": int(G_pad),
@@ -458,7 +512,9 @@ def memory_model(
     """Device-memory accounting of the single-device engine against the
     card's memory (``torch.cuda.get_device_properties(dev).total_memory``
     unless ``budget_bytes`` is given): signatures and their presence
-    copy in bf16, the padded profiles, the lane2 table, the bound-bit
+    copy in bf16, the padded profiles, the table of the join kernel the
+    run takes (packed lane2 [G_pad, D*128], unpacked lane [G_pad,
+    2*D*128] or pair [G_pad, 2W], each its own allocation), the bound-bit
     matrix and its transpose, and the extraction workspace."""
     config = config or PipelineConfig()
     if budget_bytes is None:
@@ -476,22 +532,27 @@ def memory_model(
     B = wm["signature_buckets"]
     from pandelos_tpu_torch.ops.lane_join import lane_depth
 
-    D = lane_depth(index)
+    kernel = join_kernel_for(index, config)
     R = min(config.row_block, _round_up(G, 8))
     rows = -(-G // R) * R
     sig = 2 * 2 * G_pad * B  # bf16 masses + the permuted copy
     pres = 2 * rows * B  # bf16 presence of the permuted copy
     profiles = 2 * 4 * G_pad * W  # ids + counts
-    lane = 4 * G_pad * D * 128
+    join_table = {
+        "lane2": 4 * G_pad * lane_depth(index) * 128,
+        "lane": 8 * G_pad * lane_depth(index) * 128,
+        "roll": 8 * G_pad * W,
+    }[kernel]
     t_bytes = 2 * rows * rows if t_mode_enabled(1, 1, rows) else 0
     workspace = 4 * _T_ROWS * rows + 3 * _MASK_ELEMS + 6 * 4 * (1 << 21)
-    total = sig + pres + profiles + lane + t_bytes + workspace
+    total = sig + pres + profiles + join_table + t_bytes + workspace
     return {
         **wm,
         "budget_bytes": budget_bytes,
+        "join_kernel": kernel,
         "sig_bytes": int(sig + pres),
         "profile_bytes": int(profiles),
-        "lane_table_bytes": int(lane),
+        "join_table_bytes": int(join_table),
         "bound_bits_bytes": int(t_bytes),
         "workspace_bytes": int(workspace),
         "total_bytes": int(total),
@@ -515,9 +576,137 @@ def check_hbm_fit(index: KmerIndex, config, device) -> None:
         f"the single-device engine needs ~{mm['total_bytes']/1e9:.1f}GB "
         f"(card {mm['budget_bytes']/1e9:.1f}GB): signatures "
         f"{mm['sig_bytes']/1e9:.1f}GB + profiles "
-        f"{mm['profile_bytes']/1e9:.1f}GB + lane "
-        f"{mm['lane_table_bytes']/1e9:.1f}GB + bound bits "
+        f"{mm['profile_bytes']/1e9:.1f}GB + {mm['join_kernel']} join table "
+        f"{mm['join_table_bytes']/1e9:.1f}GB + bound bits "
         f"{mm['bound_bits_bytes']/1e9:.1f}GB; shard the input by genome "
         f"subsets or wait for the multi-GPU path (ROADMAP Queue 1 item 9); "
         f"PANDELOS_IGNORE_HBM_MODEL=1 overrides"
     )
+
+
+def _host_fallback_rows(index: KmerIndex, rows) -> ScoreCells:
+    """Exact posting walk for a small set of rows (candidate overflow past
+    the device retry): every cell of those rows, invalid ones included
+    (the finalization drops them)."""
+    return cells_of_rows(index, rows)
+
+
+# the largest candidate cap of the device retry; rows past it take the
+# host posting walk
+MAX_RETRY_CAP = 4096
+
+
+def _mirrored(i, j, inter, perc, tr):
+    """Upper-triangle cells (i < j) and their mirrors (j, i), whose perc
+    and tr exchange (the validity test is direction-symmetric,
+    library.cpp:499-500)."""
+    return (
+        np.concatenate([i, j]).astype(np.int32),
+        np.concatenate([j, i]).astype(np.int32),
+        np.concatenate([inter, inter]).astype(np.int64),
+        np.concatenate([perc, tr]).astype(np.int64),
+        np.concatenate([tr, perc]).astype(np.int64),
+    )
+
+
+def _valid_pairs(runner: Runner, grow, cand, counts, K: int, capture=None):
+    """Flatten + join + validity over one extraction; the valid pairs'
+    (pi, pj, inter, perc, tr) on the host."""
+    counts_h = counts.reshape(-1).cpu().numpy()
+    pair_cap = runner.pair_capacity(counts_h, K)
+    out = runner.flatten_join(grow, cand, counts, K, pair_cap)
+    if capture is not None:
+        capture.update(table=runner.join_table, dg=runner.dg, pi=out[0],
+                       pj=out[1], inter=out[2], perc=out[3], tr=out[4],
+                       join_kernel=runner.join_kernel)
+    keep = out[5] & (out[0] < runner.G)
+    return [x[keep].cpu().numpy() for x in out[:5]]
+
+
+def compute_cells_candidate(
+    index: KmerIndex, config: Optional[PipelineConfig] = None, device=None,
+    capture: Optional[dict] = None,
+) -> ScoreCells:
+    """Every VALID cell (both orientations) through the candidate engine
+    on one device: the counterpart of the JAX package's
+    ``compute_cells_candidate`` with backend ``"pallas"``.
+
+    One extraction pass (upper triangle only: each unordered pair once,
+    in its lower-id row's list) feeds the flatten + join + validity step
+    with ``config.join_kernel``; the host mirrors the valid cells.  Rows
+    whose candidates overflow ``config.candidate_cap`` are rerun on the
+    device with a cap of their count rounded up to 128 when that is at
+    most 4096, else walked exactly on the host
+    (:func:`_host_fallback_rows`, whose invalid cells the finalization
+    drops).  The JAX package's device retry joins inside its extraction
+    scan (the xla backend's in-scan join, ROADMAP Queue 1 item 8); here
+    the retry extracts without joining and runs the same flatten + join
+    through the selected kernel.  The counters are exact integers either
+    way, so the cells are equal as a set.
+
+    ``capture``, when given, receives the runner and the main pass's
+    join inputs and outputs (see ``compute_network_device``)."""
+    config = config or PipelineConfig()
+    dev = resolve_device(device if device is not None else config.device)
+    configure_numerics()
+    G = index.n_sequences
+    if G == 0 or index.profile_ids.size == 0:
+        z32 = np.zeros(0, dtype=np.int32)
+        z64 = np.zeros(0, dtype=np.int64)
+        return ScoreCells(z32, z32, z64, z64, z64)
+
+    check_hbm_fit(index, config, dev)
+    row_block = min(config.row_block, _round_up(G, 8))
+    col_block = min(config.col_block, _round_up(G, 128))
+    padded = pad_profiles(index, row_block, col_block)
+    K = config.candidate_cap
+    runner = get_runner(index, padded, config, dev)
+    sig_mass, _, _ = build_signatures(
+        index, padded, runner.all_ids, runner.all_counts
+    )
+    runner.set_sig(sig_mass)
+
+    widths = np.diff(index.profile_ptr)
+    perm = np.argsort(widths, kind="stable").astype(np.int32)
+    n_blocks = -(-G // row_block)
+    perm_pad = np.full(n_blocks * row_block, G, dtype=np.int32)
+    perm_pad[:G] = perm
+    perm_ext = np.concatenate([perm_pad, np.full(row_block, G, np.int32)])
+    starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
+    use_T = runner.use_bound_bits(len(starts), row_block)
+    grow_d, cand_d, counts_d = runner.extract(
+        perm_ext, starts, row_block, K, upper_only=True, from_T=use_T,
+    )
+    if capture is not None:
+        capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
+                       row_block=row_block, use_T=use_T)
+    counts_h = counts_d.reshape(-1).cpu().numpy()
+    grow_h = runner.grow_layout(perm_ext, starts, row_block).reshape(-1)
+    over = (counts_h > K) & (grow_h < G)
+    parts = [_mirrored(*_valid_pairs(runner, grow_d, cand_d, counts_d, K,
+                                     capture))]
+
+    if over.any():
+        rows = np.sort(grow_h[over]).astype(np.int32)
+        K2 = _round_up(int(counts_h[over].max()), 128)
+        if K2 <= MAX_RETRY_CAP:
+            pad = (-len(rows)) % row_block
+            perm2 = np.concatenate(
+                [rows, np.full(pad + row_block, G, dtype=np.int32)]
+            )
+            starts2 = np.arange(
+                0, len(perm2) - row_block, row_block, dtype=np.int32
+            )
+            out = runner.extract(perm2, starts2, row_block, K2,
+                                 upper_only=True)
+            parts.append(_mirrored(*_valid_pairs(runner, *out, K2)))
+        else:
+            # upper-triangle discipline: keep col > row and mirror, so
+            # partner rows' mirrored cells are not duplicated
+            fb = _host_fallback_rows(index, rows)
+            keep = fb.col > fb.row
+            parts.append(_mirrored(
+                fb.row[keep], fb.col[keep], fb.intersection[keep],
+                fb.perc_cnt[keep], fb.tr_perc_cnt[keep],
+            ))
+    return ScoreCells(*(np.concatenate(x) for x in zip(*parts)))

@@ -1,7 +1,7 @@
-"""Lane-bucketed exact profile join (lane2): table, depths, and the
-hand-written CUDA kernel with its plain PyTorch version.
+"""Lane-bucketed exact profile joins (lane2 and lane): tables, depths,
+and the hand-written CUDA kernels with their plain PyTorch versions.
 
-For each candidate pair (gene A, gene B) the join computes the integer
+For each candidate pair (gene A, gene B) a join computes the integer
 counters of the reference's scoring kernel (``library.cpp:475-477``)::
 
     inter = sum over shared k-mers of min(cA, cB)
@@ -12,13 +12,19 @@ Profiles are re-laid so that k-mer id ``v`` always lives in lane
 ``v & 127``, at the depth of its rank among the gene's ids in that lane
 (``[D, 128]`` per gene, ``D`` the largest depth over all genes).  Equal
 ids are then lane-aligned and one compare per (depth_a, depth_b) slot row
-replaces a merge.  Entries pack to ``id << 8 | count`` (count < 256,
-id < 2^23); an empty slot is ``-256``, which equals only another empty
-slot, whose count is 0.
+replaces a merge.  Two table layouts:
 
-``lane2_join`` runs the CUDA kernel ``csrc/lane2_join.cu`` on CUDA
-tensors and the plain version :func:`lane2_join_plain` on CPU tensors;
-``lane2_join.launches`` counts kernel launches.
+- packed (lane2): one ``[G_pad, D*128]`` int32 table of ``id << 8 |
+  count`` (count < 256, id < 2^23); an empty slot is ``-256``, which
+  equals only another empty slot, whose count is 0;
+- unpacked (lane): ``[G_pad, 2*D*128]``, ids then counts; an empty slot
+  has id -1 and count 0.  Any count and id fit: it is lane2's exact
+  fallback for inputs that cannot pack.
+
+``lane2_join`` and ``lane_join`` run the CUDA kernels
+``csrc/lane2_join.cu`` and ``csrc/lane_join.cu`` on CUDA tensors and the
+plain versions :func:`lane2_join_plain` and :func:`lane_join_plain` on
+CPU tensors; their ``launches`` attributes count kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ import torch
 
 _LANE = 128
 _EMPTY = -256
+# packed entries: id << 8 | count needs count < 256 and id < 2^23
+_PACK_COUNT_LIMIT = 1 << 8
+_PACK_ID_LIMIT = 1 << 23
 
 
 def lane_depths(index) -> np.ndarray:
@@ -66,8 +75,11 @@ def pack_lane_device_core(
     chunk_bytes: int = 1 << 28,
 ) -> torch.Tensor:
     """[G_pad, W] padded profiles (``pad_profiles`` layout: id-sorted,
-    left-packed, count 0 marks padding) -> the lane2 table [G_pad, D*128]
-    int32 of ``id << 8 | count`` entries, empty slots ``-256``.
+    left-packed, count 0 marks padding) -> a lane table: with ``packed``
+    the lane2 table [G_pad, D*128] int32 of ``id << 8 | count`` entries,
+    empty slots ``-256`` (raises ValueError when a count or id does not
+    fit); otherwise the lane table [G_pad, 2*D*128] int32, ids then
+    counts, empty slots id -1 and count 0.
 
     Per row chunk: lane = id & 127; depth = rank of the slot within its
     (row, lane) group, by a cumsum over the 128-wide lane one-hot (ids
@@ -75,17 +87,23 @@ def pack_lane_device_core(
     scatters to ``depth*128 + lane``, padding slots to a per-slot dump
     column past the table.  The row chunk keeps the one-hot temporary
     under ``chunk_bytes``."""
-    if not packed:
-        from pandelos_tpu_torch.config import NotPortedError
-
-        raise NotPortedError(
-            "the unpacked lane table feeds the banded lane kernel: ROADMAP "
-            "Queue 2 kernel 2"
-        )
     G_pad, W = ids.shape
     WL = D * _LANE
     dev = ids.device
-    out = torch.full((G_pad, WL), _EMPTY, dtype=torch.int32, device=dev)
+    if packed and ids.numel():
+        lims = torch.stack([counts.max(), ids.max()]).tolist()
+        if lims[0] >= _PACK_COUNT_LIMIT or lims[1] >= _PACK_ID_LIMIT:
+            raise ValueError(
+                f"the packed lane table needs counts < {_PACK_COUNT_LIMIT} "
+                f"and ids < {_PACK_ID_LIMIT}; got max count {lims[0]}, max "
+                f"id {lims[1]} (build the unpacked table, packed=False)"
+            )
+    out = torch.full(
+        (G_pad, WL if packed else 2 * WL), _EMPTY if packed else -1,
+        dtype=torch.int32, device=dev,
+    )
+    if not packed:
+        out[:, WL:] = 0
     rc = max(1, min(G_pad, chunk_bytes // max(1, W * _LANE * 4)))
     lanes = torch.arange(_LANE, dtype=torch.int32, device=dev)
     dump = WL + torch.arange(W, dtype=torch.int64, device=dev)[None, :]
@@ -99,24 +117,27 @@ def pack_lane_device_core(
         cum = onehot.to(torch.int32).cumsum(1)
         depth = cum.gather(2, lane[..., None].long())[..., 0] - 1
         pos = torch.where(valid, (depth * _LANE + lane).long(), dump)
-        vals = torch.where(
-            valid, (idc << 8) | cnc, torch.full_like(idc, _EMPTY)
-        )
-        blk = torch.full((C, WL + W), _EMPTY, dtype=torch.int32, device=dev)
-        blk.scatter_(1, pos, vals)
-        out[r0:r0 + C] = blk[:, :WL]
+        if packed:
+            parts = [(torch.where(valid, (idc << 8) | cnc,
+                                  torch.full_like(idc, _EMPTY)), _EMPTY)]
+        else:
+            parts = [(torch.where(valid, idc, torch.full_like(idc, -1)), -1),
+                     (torch.where(valid, cnc, torch.zeros_like(cnc)), 0)]
+        for h, (vals, fill) in enumerate(parts):
+            blk = torch.full((C, WL + W), fill, dtype=torch.int32, device=dev)
+            blk.scatter_(1, pos, vals)
+            out[r0:r0 + C, h * WL:(h + 1) * WL] = blk[:, :WL]
     return out
 
 
-def lane2_join_plain(table, dg, a_idx, b_idx, pair_chunk: int = 1 << 15):
-    """Plain PyTorch lane2 join, the kernel's twin: the same per-pair
-    depth bounds, int32 counters, f32 outputs.  Loops over the depth slot
-    rows with tensor ops over (pairs x 128 lanes), pairs in chunks."""
-    G_pad, WL = table.shape
-    D = WL // _LANE
-    t3 = table.view(G_pad, D, _LANE)
+def _lane_plain(slot, dg, a_idx, b_idx, pair_chunk):
+    """The plain join over slot rows: ``slot(genes, i)`` gives the keys
+    and counts [C, 128] of depth row ``i`` of each gene; equal keys in a
+    lane are a shared k-mer (empty slots carry count 0).  The same
+    per-pair depth bounds as the kernels, int32 counters, f32 outputs;
+    tensor ops over (pairs x 128 lanes), pairs in chunks."""
     P = a_idx.shape[0]
-    dev = table.device
+    dev = dg.device
     outs = [torch.zeros(P, dtype=torch.float32, device=dev) for _ in range(3)]
     for c0 in range(0, P, pair_chunk):
         a = a_idx[c0:c0 + pair_chunk].long()
@@ -128,14 +149,12 @@ def lane2_join_plain(table, dg, a_idx, b_idx, pair_chunk: int = 1 << 15):
         acc = [torch.zeros(a.shape[0], dtype=torch.int32, device=dev)
                for _ in range(3)]
         for i in range(n_a):
-            x = t3[a, i]  # [C, 128]
-            cx = x & 255
+            kx, cx = slot(a, i)  # [C, 128]
             a_on = (i < da)[:, None]
+            zero = torch.zeros_like(cx)
             for j in range(n_b):
-                y = t3[b, j]
-                cy = y & 255
-                eq = (((x ^ y) >> 8) == 0) & a_on & (j < db)[:, None]
-                zero = torch.zeros_like(cx)
+                ky, cy = slot(b, j)
+                eq = (kx == ky) & a_on & (j < db)[:, None]
                 acc[0] += torch.where(eq, torch.minimum(cx, cy), zero).sum(
                     1, dtype=torch.int32)
                 acc[1] += torch.where(eq, cx, zero).sum(1, dtype=torch.int32)
@@ -145,7 +164,34 @@ def lane2_join_plain(table, dg, a_idx, b_idx, pair_chunk: int = 1 << 15):
     return tuple(outs)
 
 
-def _check_args(table, dg, a_idx, b_idx):
+def lane2_join_plain(table, dg, a_idx, b_idx, pair_chunk: int = 1 << 15):
+    """Plain PyTorch lane2 join, the kernel's twin, over the packed table
+    (``((x ^ y) >> 8) == 0`` is ``x >> 8 == y >> 8``; an empty slot's
+    key is -1)."""
+    G_pad, WL = table.shape
+    t3 = table.view(G_pad, WL // _LANE, _LANE)
+
+    def slot(g, i):
+        x = t3[g, i]
+        return x >> 8, x & 255
+
+    return _lane_plain(slot, dg, a_idx, b_idx, pair_chunk)
+
+
+def lane_join_plain(table, dg, a_idx, b_idx, pair_chunk: int = 1 << 15):
+    """Plain PyTorch lane join, the kernel's twin, over the unpacked
+    table (ids then counts; an empty slot's id is -1)."""
+    G_pad, W2 = table.shape
+    D = W2 // (2 * _LANE)
+    t4 = table.view(G_pad, 2, D, _LANE)
+
+    def slot(g, i):
+        return t4[g, 0, i], t4[g, 1, i]
+
+    return _lane_plain(slot, dg, a_idx, b_idx, pair_chunk)
+
+
+def _check_args(table, dg, a_idx, b_idx, row_unit):
     ts = {"table": table, "dg": dg, "a_idx": a_idx, "b_idx": b_idx}
     for name, t in ts.items():
         if not isinstance(t, torch.Tensor):
@@ -158,9 +204,9 @@ def _check_args(table, dg, a_idx, b_idx):
             raise ValueError(
                 f"{name} is on {t.device}, table on {table.device}"
             )
-    if table.dim() != 2 or table.shape[1] == 0 or table.shape[1] % _LANE:
+    if table.dim() != 2 or table.shape[1] == 0 or table.shape[1] % row_unit:
         raise ValueError(
-            f"table must be [G_pad, D*128], got {tuple(table.shape)}"
+            f"table must be [G_pad, D*{row_unit}], got {tuple(table.shape)}"
         )
     if dg.dim() != 1 or dg.shape[0] != table.shape[0]:
         raise ValueError(
@@ -173,6 +219,17 @@ def _check_args(table, dg, a_idx, b_idx):
         )
 
 
+def check_pair_indices(a_idx, b_idx, G_pad: int):
+    """Raise unless every pair index lies in [0, G_pad): a kernel reads
+    rows by index (one device-to-host sync)."""
+    lims = torch.stack([torch.minimum(a_idx.min(), b_idx.min()),
+                        torch.maximum(a_idx.max(), b_idx.max())]).tolist()
+    if lims[0] < 0 or lims[1] >= G_pad:
+        raise ValueError(
+            f"pair indices span [{lims[0]}, {lims[1]}], outside [0, {G_pad})"
+        )
+
+
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -180,19 +237,18 @@ _ARGTYPES = [
 ]
 
 
-def lane2_join(table, dg, a_idx, b_idx):
-    """Exact counters (inter, perc, tr), f32 [P], for pairs
-    ``(a_idx[p], b_idx[p])`` over the lane2 ``table`` with per-gene depths
-    ``dg``.  CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`lane2_join_plain`.  Indices must lie in ``[0, G_pad)`` and
-    depths in ``[0, D]``: the kernel reads rows by index, so both are
-    checked before the launch."""
-    _check_args(table, dg, a_idx, b_idx)
+def _lane_join(wrapper, plain, row_unit, table, dg, a_idx, b_idx):
+    """Shared body of the lane join wrappers: argument checks, the plain
+    version for CPU tensors, the kernel ``csrc/<wrapper name>.cu`` for
+    CUDA tensors (or a raise); counts the launch on ``wrapper``."""
+    name = wrapper.__name__
+    _check_args(table, dg, a_idx, b_idx, row_unit)
     if table.device.type == "cpu":
-        return lane2_join_plain(table, dg, a_idx, b_idx)
+        return plain(table, dg, a_idx, b_idx)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    G_pad, WL = table.shape
+    G_pad, WT = table.shape
+    D = WT // row_unit
     P = a_idx.shape[0]
     outs = tuple(
         torch.empty(P, dtype=torch.float32, device=table.device)
@@ -200,37 +256,49 @@ def lane2_join(table, dg, a_idx, b_idx):
     )
     if P == 0:
         return outs
-    lims = torch.stack([
-        torch.minimum(a_idx.min(), b_idx.min()),
-        torch.maximum(a_idx.max(), b_idx.max()),
-        dg.min(), dg.max(),
-    ]).tolist()
-    if lims[0] < 0 or lims[1] >= G_pad:
+    check_pair_indices(a_idx, b_idx, G_pad)
+    dlims = torch.stack([dg.min(), dg.max()]).tolist()
+    if dlims[0] < 0 or dlims[1] > D:
         raise ValueError(
-            f"pair indices span [{lims[0]}, {lims[1]}], outside "
-            f"[0, {G_pad})"
-        )
-    if lims[2] < 0 or lims[3] > WL // _LANE:
-        raise ValueError(
-            f"depths span [{lims[2]}, {lims[3]}], outside [0, {WL // _LANE}]"
+            f"depths span [{dlims[0]}, {dlims[1]}], outside [0, {D}]"
         )
     from pandelos_tpu_torch import kernels
 
-    lib = kernels.load("lane2_join")
-    fn = lib.pt_lane2_join
+    fn = getattr(kernels.load(name), "pt_" + name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = fn(
-            table.data_ptr(), WL, dg.data_ptr(), a_idx.data_ptr(),
+            table.data_ptr(), WT, dg.data_ptr(), a_idx.data_ptr(),
             b_idx.data_ptr(), P, outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr(), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"lane2_join kernel launch failed: cudaError {rc}")
-    lane2_join.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    wrapper.launches += 1
     return outs
 
 
+def lane2_join(table, dg, a_idx, b_idx):
+    """Exact counters (inter, perc, tr), f32 [P], for pairs
+    ``(a_idx[p], b_idx[p])`` over the packed lane2 ``table`` [G_pad,
+    D*128] with per-gene depths ``dg``.  CUDA tensors launch the kernel
+    (or raise); CPU tensors take :func:`lane2_join_plain`.  Indices must
+    lie in ``[0, G_pad)`` and depths in ``[0, D]``: the kernel reads rows
+    by index, so both are checked before the launch."""
+    return _lane_join(lane2_join, lane2_join_plain, _LANE,
+                      table, dg, a_idx, b_idx)
+
+
+def lane_join(table, dg, a_idx, b_idx):
+    """:func:`lane2_join` over the unpacked lane ``table`` [G_pad,
+    2*D*128] (ids then counts): any count and id, the fallback for
+    inputs lane2 cannot pack.  CUDA tensors launch ``csrc/lane_join.cu``
+    (or raise); CPU tensors take :func:`lane_join_plain`."""
+    return _lane_join(lane_join, lane_join_plain, 2 * _LANE,
+                      table, dg, a_idx, b_idx)
+
+
 lane2_join.launches = 0
+lane_join.launches = 0

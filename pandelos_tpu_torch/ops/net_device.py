@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``ops/net_device.py`` on one device
 (no mesh, no ring): the candidate engine extracts every row's candidate
-list, the lane2 join computes the exact counters of every flat pair, and
+list, the selected exact join (lane2, lane or roll) computes the exact
+counters of every flat pair, and
 the reference's BBH + paralog filters (``Pangenes.java:98-176``) run on
 the device, so that only the accepted cells come back to the host.
 
@@ -40,7 +41,8 @@ from pandelos_tpu_torch.ops.candidate import (
 from pandelos_tpu_torch.ops.exact_div import exact_div_f32
 from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
 
-# candidate caps past this go to the host cells path (not ported)
+# candidate caps past this go to the host cells path
+# (compute_cells_candidate + host BBH)
 MAX_CANDIDATE_CAP = 1024
 
 
@@ -234,9 +236,9 @@ def compute_network_device(
     the whole extraction reruns at the next power-of-two cap.
 
     ``capture``, when given, receives the runner, the extraction layout
-    and the lane2 join's inputs and outputs (table, depths, pair lists,
-    counters), so that a caller can check and time the kernel and the
-    bound bits at the shapes of this run."""
+    and the join's kernel name, inputs and outputs (the table that kernel
+    read, depths, pair lists, counters), so that a caller can check and
+    time the kernel and the bound bits at the shapes of this run."""
     config = config or PipelineConfig()
     check_ported(config)
     dev = resolve_device(device if device is not None else config.device)
@@ -308,7 +310,8 @@ def compute_network_device(
     if capture is not None:
         capture.update(
             runner=runner, perm_ext=perm_ext, starts=starts,
-            row_block=row_block, use_T=use_T, table=runner.all_lane2, dg=runner.dg, pi=fpi, pj=fpj,
+            row_block=row_block, use_T=use_T, join_kernel=runner.join_kernel,
+            table=runner.join_table, dg=runner.dg, pi=fpi, pj=fpj,
             inter=fi, perc=fp, tr=ft,
         )
     _mark(f"flatten_join(pair_cap={pair_cap})")
@@ -422,7 +425,14 @@ def compute_network_device(
         "edge_cap_initial": int(edge_cap_initial),
         "pair_cap": int(pair_cap),
         "lane_D": int(runner.lane_D),
-        "lane_table_cols": int(runner.all_lane2.shape[1]),
+        "join_kernel": runner.join_kernel,
+        # only when the lane2 table exists: under lane or roll, building
+        # it would cost memory for nothing (and cannot pack when the
+        # input forced the lane fallback)
+        "lane_table_cols": (
+            int(runner.all_lane2.shape[1])
+            if runner.join_kernel == "lane2" else None
+        ),
         "edge_cap": int(edge_cap),
     }
     if n_gen <= 128 and not _no_stats() and n_acc_canonical > 0:

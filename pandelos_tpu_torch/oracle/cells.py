@@ -79,6 +79,12 @@ def _posting_csr(index: KmerIndex):
 
 
 def compute_cells_oracle(index: KmerIndex) -> ScoreCells:
+    return cells_of_rows(index, range(index.n_sequences))
+
+
+def cells_of_rows(index: KmerIndex, rows) -> ScoreCells:
+    """Every cell (i, j), i in ``rows``, j != i sharing a k-mer, by the
+    posting walk; the cells of each row in ascending column order."""
     post_ptr, post_gene, post_count = _posting_csr(index)
     G = index.n_sequences
 
@@ -88,7 +94,7 @@ def compute_cells_oracle(index: KmerIndex) -> ScoreCells:
     perc_out = []
     tr_out = []
 
-    for i in range(G):
+    for i in rows:
         s, e = index.profile_ptr[i], index.profile_ptr[i + 1]
         if e == s:
             continue

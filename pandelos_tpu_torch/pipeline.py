@@ -19,18 +19,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from pandelos_tpu_torch.cluster import cluster_network, families_as_names
-from pandelos_tpu_torch.config import (
-    NotPortedError,
-    PipelineConfig,
-    check_ported,
-)
+from pandelos_tpu_torch.config import PipelineConfig, check_ported
 from pandelos_tpu_torch.index import KmerIndex, build_index
 from pandelos_tpu_torch.io.clus import family_lines, write_clus
 from pandelos_tpu_torch.io.faa import FaaDataset, read_faa
 from pandelos_tpu_torch.io.net import write_net
 from pandelos_tpu_torch.ksel import select_k
 from pandelos_tpu_torch.net import NetworkResult, build_network, finalize_scores
-from pandelos_tpu_torch.oracle.cells import compute_cells_oracle
+from pandelos_tpu_torch.oracle.cells import ScoreCells, compute_cells_oracle
 
 
 @dataclasses.dataclass
@@ -46,6 +42,18 @@ class PipelineResult:
     stats: dict
 
 
+def compute_cells(
+    index: KmerIndex, config: PipelineConfig, capture: Optional[dict] = None
+) -> ScoreCells:
+    """The valid cells of the index on the host: the candidate engine's
+    cells path for backend ``"cuda"``, the posting walk for ``"oracle"``."""
+    if config.backend == "oracle":
+        return compute_cells_oracle(index)
+    from pandelos_tpu_torch.ops.candidate import compute_cells_candidate
+
+    return compute_cells_candidate(index, config, capture=capture)
+
+
 def run_pipeline(
     input_faa: str,
     out_prefix: Optional[str] = None,
@@ -54,8 +62,11 @@ def run_pipeline(
     capture: Optional[dict] = None,
 ) -> PipelineResult:
     """.faa -> .net + .clus (+ .stats.json) with the ``"cuda"`` engine
-    or the ``"oracle"`` host path.  ``capture``, when given, receives the
-    index and the device engine's join inputs (see
+    or the ``"oracle"`` host path.  The engine builds the network on the
+    device unless ``config.device_bbh`` is False; it takes the cells path
+    (:func:`compute_cells`, then BBH on the host) then, and when a row's
+    candidates pass the largest device cap.  ``capture``, when given,
+    receives the index and the engine's join inputs (see
     ``compute_network_device``)."""
     config = config or PipelineConfig()
     check_ported(config)
@@ -94,32 +105,27 @@ def run_pipeline(
             stats={"complexity": report},
         )
 
-    if config.backend == "cuda":
+    net = None
+    if config.backend == "cuda" and config.device_bbh is not False:
         from pandelos_tpu_torch.ops.net_device import compute_network_device
 
         t = time.monotonic()
         out = compute_network_device(index, config, capture=capture)
-        if out is None:
-            raise NotPortedError(
-                "a row's candidates overflowed the largest device "
-                "candidate cap; the host cells path that takes over "
-                "(compute_cells_candidate with its retry and "
-                "_host_fallback_rows) is ROADMAP Queue 1 item 5"
+        if out is not None:
+            edges, dstats = out
+            times["score"] = time.monotonic() - t
+            times["network"] = 0.0
+            net = NetworkResult(
+                edges=edges,
+                n_inter_edges=dstats.get("n_inter_edges", len(edges)),
+                n_intra_edges=dstats.get("n_intra_edges", 0),
+                genome_max=np.zeros((0, 0), np.float32),
+                inter_max_score=np.zeros((0, 0), np.float32),
+                stats=dstats,
             )
-        edges, dstats = out
-        times["score"] = time.monotonic() - t
-        times["network"] = 0.0
-        net = NetworkResult(
-            edges=edges,
-            n_inter_edges=dstats.get("n_inter_edges", len(edges)),
-            n_intra_edges=dstats.get("n_intra_edges", 0),
-            genome_max=np.zeros((0, 0), np.float32),
-            inter_max_score=np.zeros((0, 0), np.float32),
-            stats=dstats,
-        )
-    else:
+    if net is None:
         t = time.monotonic()
-        cells = compute_cells_oracle(index)  # backend "oracle"
+        cells = compute_cells(index, config, capture=capture)
         times["score"] = time.monotonic() - t
 
         t = time.monotonic()

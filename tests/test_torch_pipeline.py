@@ -1,6 +1,7 @@
-"""The port end to end on the CPU: goldens byte for byte, the shared
-index, the import boundary, device resolution, and a raise for every path
-that is not ported yet."""
+"""The port end to end on the CPU: goldens byte for byte on every join
+kernel and on the cells path, the shared index, the import boundary,
+device resolution, lane2's fallback for inputs it cannot pack, the work
+and memory models, and a raise for every path that is not ported yet."""
 
 import dataclasses
 import filecmp
@@ -12,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from pandelos_tpu.config import PipelineConfig as JaxConfig
 from pandelos_tpu.index import build_index as jax_build_index
+from pandelos_tpu.io.faa import FaaDataset as JaxFaaDataset
 from pandelos_tpu.io.faa import read_faa as jax_read_faa
+from pandelos_tpu.pipeline import run_pipeline as jax_run_pipeline
 from pandelos_tpu_torch.config import NotPortedError, PipelineConfig
 from pandelos_tpu_torch.index import KmerIndex, build_index
 from pandelos_tpu_torch.io.faa import FaaDataset, read_faa
@@ -46,6 +50,30 @@ def test_pipeline_reproduces_golden(tmp_path, name, faa, backend):
         assert filecmp.cmp(prefix + suffix,
                            os.path.join(GOLDEN, name + suffix),
                            shallow=False), suffix
+
+
+# the other routes of the engine: each join kernel with device BBH, and
+# the cells path (host BBH) with each
+PATHS = {
+    "lane": dict(join_kernel="lane"),
+    "roll": dict(join_kernel="roll"),
+    "cells_lane2": dict(device_bbh=False),
+    "cells_lane": dict(device_bbh=False, join_kernel="lane"),
+    "cells_roll": dict(device_bbh=False, join_kernel="roll"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("name,faa", CASES, ids=[c[0] for c in CASES])
+def test_engine_paths_reproduce_golden(tmp_path, name, faa, path):
+    prefix = str(tmp_path / name)
+    res = run_pipeline(faa, prefix, _cfg(**PATHS[path]))
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, name + suffix),
+                           shallow=False), suffix
+    if not path.startswith("cells"):
+        assert res.stats["network"]["join_kernel"] == path
 
 
 def test_cli_run_and_check(tmp_path):
@@ -92,8 +120,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "import sys\n"
         "from pandelos_tpu_torch.config import PipelineConfig\n"
         "from pandelos_tpu_torch.pipeline import run_pipeline\n"
-        f"run_pipeline({os.path.join(DATA, 'toy.faa')!r}, "
-        f"{str(tmp_path / 'toy')!r}, PipelineConfig(device='cpu'))\n"
+        "for kw in ({}, {'join_kernel': 'lane'}, {'join_kernel': 'roll'},\n"
+        "           {'device_bbh': False}):\n"
+        f"    run_pipeline({os.path.join(DATA, 'toy.faa')!r}, "
+        f"{str(tmp_path / 'toy')!r}, PipelineConfig(device='cpu', **kw))\n"
+        "import pandelos_tpu_torch.ops.pair_join, pandelos_tpu_torch.kernels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pandelos_tpu' or m.startswith('pandelos_tpu.')]\n"
         "assert not bad, bad\n"
@@ -122,7 +153,9 @@ def test_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
                      PipelineConfig(row_block=16, col_block=128))
 
 
-NOT_PORTED = {
+# the options of the JAX package's config: those that raise name the
+# ROADMAP item that ports them; the join kernels and the cells path run
+OPTIONS = {
     "backend_xla": dict(backend="xla"),
     "backend_dense": dict(backend="dense"),
     "backend_pallas": dict(backend="pallas"),
@@ -135,47 +168,187 @@ NOT_PORTED = {
     "device_bbh_off": dict(device_bbh=False),
     "profile_dir": dict(profile_dir="trace"),
 }
+RUNS = {"join_kernel_lane", "join_kernel_roll", "device_bbh_off"}
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+@pytest.mark.parametrize("name", sorted(OPTIONS))
 def test_unported_option_raises(name, tmp_path):
+    """An option not ported raises NotPortedError naming its ROADMAP item
+    and writes nothing; the ported ones (RUNS) write the golden output,
+    which equals the JAX package's."""
+    prefix = str(tmp_path / "x")
+    toy = os.path.join(DATA, "toy.faa")
+    if name in RUNS:
+        run_pipeline(toy, prefix, _cfg(**OPTIONS[name]))
+        jax_run_pipeline(toy, prefix + "_jax", JaxConfig(
+            backend="pallas", row_block=16, col_block=128, candidate_cap=64,
+            **OPTIONS[name]))
+        for suffix in (".net", ".clus"):
+            assert filecmp.cmp(prefix + suffix, prefix + "_jax" + suffix,
+                               shallow=False), suffix
+            assert filecmp.cmp(prefix + suffix,
+                               os.path.join(GOLDEN, "toy" + suffix),
+                               shallow=False), suffix
+        return
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        run_pipeline(os.path.join(DATA, "toy.faa"), str(tmp_path / "x"),
-                     _cfg(**NOT_PORTED[name]))
-    assert not os.path.exists(str(tmp_path / "x.net"))
+        run_pipeline(toy, prefix, _cfg(**OPTIONS[name]))
+    assert not os.path.exists(prefix + ".net")
 
 
 def test_unknown_backend_is_an_error():
     with pytest.raises(ValueError):
         run_pipeline(os.path.join(DATA, "toy.faa"), None,
                      _cfg(backend="tpu"))
+    with pytest.raises(ValueError, match="join_kernel"):
+        run_pipeline(os.path.join(DATA, "toy.faa"), None,
+                     _cfg(join_kernel="merge"))
 
 
-def test_unpackable_counts_raise(tmp_path):
-    """A k-mer count >= 256 cannot be packed for lane2; its fallback
-    kernel is not ported, so the run raises."""
+def _homopolymer(cls):
     seq = "A" * 300 + "CDEFGHIK"
-    ds = FaaDataset(sequences=[seq, seq, "CDEFGHIKLM"],
-                    names=["a", "b", "c"], descriptions=["d"] * 3,
-                    seq_genome=[0, 1, 1], genome_names=["g0", "g1"])
-    with pytest.raises(NotPortedError, match="Queue 2 kernel 2"):
-        run_pipeline("", None, _cfg(k=3), dataset=ds)
+    return cls(sequences=[seq, seq, "CDEFGHIKLM", "A" * 280 + "CDEF"],
+               names=["a", "b", "c", "d"], descriptions=["d"] * 4,
+               seq_genome=[0, 1, 1, 2], genome_names=["g0", "g1", "g2"])
 
 
-def test_candidate_cap_past_the_device_limit_raises(monkeypatch):
-    """Past the largest device candidate cap the JAX package takes the
-    host cells path (compute_cells_candidate), which is not ported."""
-    from pandelos_tpu_torch.ops import net_device
+@pytest.mark.parametrize("device_bbh", [None, False])
+def test_unpackable_counts_raise(tmp_path, device_bbh):
+    """A k-mer count >= 256 (AAA in a 300-residue poly-A tract) cannot be
+    packed for lane2: the run takes the lane kernel instead, builds no
+    lane2 table, and writes the JAX package's output byte for byte."""
+    prefix = str(tmp_path / "port")
+    cap = {}
+    res = run_pipeline("", prefix, _cfg(k=3, device_bbh=device_bbh),
+                       dataset=_homopolymer(FaaDataset), capture=cap)
+    assert int(cap["index"].profile_counts.max()) >= 256
+    assert cap["join_kernel"] == "lane"
+    assert cap["runner"]._all_lane2 is None
+    if device_bbh is None:
+        assert res.stats["network"]["join_kernel"] == "lane"
+        assert res.stats["network"]["lane_table_cols"] is None
+    jax_run_pipeline("", str(tmp_path / "jax"), JaxConfig(
+        backend="pallas", k=3, row_block=16, col_block=128,
+        candidate_cap=64, device_bbh=device_bbh),
+        dataset=_homopolymer(JaxFaaDataset))
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix, str(tmp_path / "jax") + suffix,
+                           shallow=False), suffix
+    assert len(res.edges) > 0
+
+
+def test_candidate_cap_past_the_device_limit_raises(monkeypatch, tmp_path):
+    """Past the largest device candidate cap the network comes from the
+    cells path (compute_cells_candidate, host BBH), whose cells equal
+    the oracle's valid cells; the output stays the golden."""
+    from pandelos_tpu_torch.oracle.cells import (
+        apply_validity,
+        compute_cells_oracle,
+    )
+    from pandelos_tpu_torch.ops import candidate, net_device
 
     monkeypatch.setattr(net_device, "MAX_CANDIDATE_CAP", 2)
-    with pytest.raises(NotPortedError, match="Queue 1 item 5"):
-        run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), None,
-                     _cfg(candidate_cap=2))
+    seen = []
+    real = candidate.compute_cells_candidate
+
+    def spy(index, config, **kw):
+        seen.append(real(index, config, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(candidate, "compute_cells_candidate", spy)
+    prefix = str(tmp_path / "s")
+    cap = {}
+    run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
+                 _cfg(candidate_cap=2), capture=cap)
+    assert len(seen) == 1
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, "synth_small" + suffix),
+                           shallow=False), suffix
+    idx = cap["index"]
+
+    def cells(c):
+        c = apply_validity(c, idx.kseq_lengths, idx.k).sort()
+        return np.stack([c.row, c.col, c.intersection, c.perc_cnt,
+                         c.tr_perc_cnt])
+
+    np.testing.assert_array_equal(cells(seen[0]),
+                                  cells(compute_cells_oracle(idx)))
 
 
 def test_unported_engine_parts_raise():
-    from pandelos_tpu_torch.ops.lane_join import pack_lane_device_core
+    """The runner's lane and pair tables, built on the device from its
+    resident profiles, equal the JAX MeshRunner's."""
+    from pandelos_tpu.ops import candidate as jcand
+    from pandelos_tpu.ops.score import pad_profiles as jax_pad_profiles
+    from pandelos_tpu_torch.ops import candidate as tcand
+    from pandelos_tpu_torch.ops.score import pad_profiles
 
-    z = torch.zeros((2, 128), dtype=torch.int32)
-    with pytest.raises(NotPortedError, match="Queue 2 kernel 2"):
-        pack_lane_device_core(z, z, 1, packed=False)
+    from tests.torch_port_util import twin_indexes
+
+    ds = jax_read_faa(os.path.join(GOLDEN, "synth_small.faa"))
+    for jk in ("lane", "roll"):
+        jidx, tidx = twin_indexes(ds, k=4)  # runners are cached per index
+        jr = jcand.get_runner(jidx, jax_pad_profiles(jidx, 16, 128), None,
+                              JaxConfig(backend="pallas", join_kernel=jk))
+        tr = tcand.get_runner(tidx, pad_profiles(tidx, 16, 128),
+                              PipelineConfig(join_kernel=jk), "cpu")
+        assert tr.join_kernel == jk
+        want = np.asarray(jr.all_lane if jk == "lane" else jr.all_pair)
+        np.testing.assert_array_equal(tr.join_table.numpy(), want)
+        assert tr.lane_D == jr.lane_D
+        assert tr._all_lane2 is None
+
+
+@pytest.mark.parametrize("join_kernel", ["lane", "roll"])
+def test_no_lane2_table_under_other_joins(join_kernel):
+    from pandelos_tpu_torch.ops.net_device import compute_network_device
+
+    idx = build_index(read_faa(os.path.join(GOLDEN, "synth_small.faa")), k=4)
+    cap = {}
+    _, stats = compute_network_device(
+        idx, _cfg(join_kernel=join_kernel), capture=cap)
+    assert cap["runner"]._all_lane2 is None
+    assert stats["lane_table_cols"] is None
+    assert stats["join_kernel"] == cap["join_kernel"] == join_kernel
+    assert cap["table"] is cap["runner"].join_table
+    assert stats["lane_D"] == (cap["runner"].lane_D if join_kernel == "lane"
+                               else 0)
+
+
+def test_work_model_matches_jax():
+    from pandelos_tpu.ops.candidate import work_model as jax_work_model
+    from pandelos_tpu_torch.ops.candidate import work_model
+
+    from tests.torch_port_util import twin_indexes
+
+    ds = jax_read_faa(os.path.join(GOLDEN, "synth_small.faa"))
+    jidx, tidx = twin_indexes(ds, k=4)
+    for rb, cb in ((16, 128), (256, 2048)):
+        want = jax_work_model(jidx, JaxConfig(row_block=rb, col_block=cb))
+        got = work_model(tidx, PipelineConfig(row_block=rb, col_block=cb))
+        assert got == want
+
+
+def test_memory_model_counts_the_selected_table():
+    from pandelos_tpu_torch.ops.candidate import memory_model
+    from pandelos_tpu_torch.ops.lane_join import lane_depth
+
+    idx = build_index(read_faa(os.path.join(GOLDEN, "synth_small.faa")), k=4)
+    got = {jk: memory_model(idx, _cfg(join_kernel=jk), budget_bytes=1e12)
+           for jk in ("lane2", "lane", "roll")}
+    G_pad, W = got["roll"]["padded_genes"], got["roll"]["padded_width"]
+    D = lane_depth(idx)
+    assert got["lane2"]["join_table_bytes"] == 4 * G_pad * D * 128
+    assert got["lane"]["join_table_bytes"] == 8 * G_pad * D * 128
+    assert got["roll"]["join_table_bytes"] == 8 * G_pad * W
+    for jk, mm in got.items():
+        assert mm["join_kernel"] == jk and mm["fits"]
+        assert mm["total_bytes"] - mm["join_table_bytes"] == (
+            got["roll"]["total_bytes"] - got["roll"]["join_table_bytes"])
+    # an input lane2 cannot pack is counted with the lane table
+    hidx = build_index(_homopolymer(FaaDataset), k=3)
+    mm = memory_model(hidx, _cfg(), budget_bytes=1e12)
+    assert mm["join_kernel"] == "lane"
+    assert mm["join_table_bytes"] == 8 * mm["padded_genes"] * lane_depth(
+        hidx) * 128
+    assert not memory_model(hidx, _cfg(), budget_bytes=1.0)["fits"]

@@ -3,9 +3,6 @@ package on the same inputs."""
 
 import dataclasses
 
-import pytest
-import torch
-
 from pandelos_tpu.index import build_index as jax_build_index
 from pandelos_tpu_torch.index import KmerIndex as TorchKmerIndex
 
@@ -17,10 +14,3 @@ def twin_indexes(ds, k):
     tidx = TorchKmerIndex.from_arrays(dataclasses.asdict(jidx))
     return jidx, tidx
 
-
-@pytest.fixture
-def cuda_device():
-    """The card, or a skip where there is none (decided at run time)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
-    return torch.device("cuda", 0)
