@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from ``pandelos_tpu_torch/csrc`` (lane2,
 lane and pair joins), holds each against its plain PyTorch version on
-the card on seeded random tables and at the shapes of the runs below,
+the card on seeded random tables, on adversarial tables and pair lists
+(chunk edges, tile-depth boundaries, empty and full rows, padding genes)
+and at the shapes of the runs below,
 checks the device division and the bound bits against the host, and
 drives the engine (``.faa`` -> ``.net`` + ``.clus``, backend ``"cuda"``)
 on ``bench_cache/mycoplasma64.faa`` at full size through each of its
@@ -17,6 +19,11 @@ each other).  Phases print one line each; a ``kernels`` JSON line comes
 before the last line, and the last line is the result object.  Any
 failure exits non-zero without a result; so does a machine without a
 card, and a directory without the package.
+
+    python3 chip_smoke.py --kernels-only
+
+stops after the kernel checks (build, random and adversarial tables) and
+prints no result line: the short first call after a kernel changed.
 """
 
 from __future__ import annotations
@@ -123,6 +130,103 @@ def random_join_inputs(kind, device, seed):
     D = max(1, int(dg.max()))
     table = pack_lane_device_core(ids_d, cnt_d, D, packed=not wide)
     return (table, torch.from_numpy(dg).to(device), a, b)
+
+
+def adversarial_profiles(seed, vocab=4096, n_random=24, max_count=256,
+                         id_base=0):
+    """Seeded padded profiles [G_pad, W = vocab] (the pad_profiles
+    layout) made to sit on the join kernels' edges.  ``vocab`` is a
+    multiple of 128.  Rows: an empty profile; a full-width one (every
+    lane at depth vocab/128, no count-0 slot); a single id; where they
+    fit, rows whose lane depth is exactly 4, 5, 8, 9, 16 and 17 (lane2's
+    register tile, the depth it keeps in shared memory per row, twice
+    that, and one past each); ``n_random`` rows of random width;
+    then four all-padding genes.  Counts lie in [1, max_count) with both
+    ends present.  Returns (ids, counts, dg, n_genes, rng)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = [np.zeros(0, np.int64), np.arange(vocab), np.array([vocab // 2])]
+    rows += [np.arange(n) for n in (512, 513, 1024, 1025, 2048, 2049)
+             if n <= vocab]
+    for _ in range(n_random):
+        w = int(rng.integers(1, vocab + 1))
+        rows.append(np.sort(rng.choice(vocab, size=w, replace=False)))
+    n_genes = len(rows)
+    G_pad = n_genes + 4
+    ids = np.full((G_pad, vocab), id_base + vocab, np.int32)
+    cnt = np.zeros((G_pad, vocab), np.int32)
+    dg = np.zeros(G_pad, np.int32)
+    for g, v in enumerate(rows):
+        w = len(v)
+        ids[g, :w] = id_base + v
+        cnt[g, :w] = rng.integers(1, max_count, size=w)
+        cnt[g, :w:7] = max_count - 1
+        cnt[g, 1:w:7] = 1
+        if w:
+            dg[g] = np.bincount(v & 127, minlength=128).max()
+    return ids, cnt, dg, n_genes, rng
+
+
+def adversarial_pairs(rng, n_genes, G_pad):
+    """Pair lists (label, a, b) over genes [0, n_genes) and the padding
+    genes [n_genes, G_pad): runs of one a whose lengths straddle the
+    32-pair chunk, an a that changes at every pair, a == b, every pair
+    of the first nine (special) rows, the padding gene on either side
+    and both, and lists shorter than, equal to and just past a chunk."""
+    import numpy as np
+
+    def i32(x):
+        return np.asarray(x, np.int32)
+
+    lens = [1, 31, 32, 33, 64, 100, 5, 27]  # sums to 293: not a chunk multiple
+    run_a = rng.integers(0, n_genes, size=len(lens))
+    runs = np.repeat(run_a, lens)
+    yield "runs across chunk edges", i32(runs), i32(
+        rng.integers(0, n_genes, size=len(runs)))
+    n = 333
+    yield "a changes at every pair", i32(np.arange(n) % n_genes), i32(
+        rng.integers(0, n_genes, size=n))
+    every = np.arange(G_pad)
+    yield "a == b", i32(every), i32(every)
+    sp = min(9, n_genes)
+    aa, bb = np.meshgrid(np.arange(sp), np.arange(sp), indexing="ij")
+    yield "special rows, all pairs", i32(aa.ravel()), i32(bb.ravel())
+    real = rng.integers(0, n_genes, size=40)
+    pad = np.full(40, n_genes)
+    yield "padding gene as a, as b, as both", i32(
+        np.concatenate([pad, real, pad])), i32(
+        np.concatenate([real, pad + 1, pad]))
+    for n in (1, 31, 32, 33):
+        yield f"{n} pairs", i32(rng.integers(0, n_genes, size=n)), i32(
+            rng.integers(0, n_genes, size=n))
+
+
+def adversarial_join_cases(kind, device, seed):
+    """(label, wrapper arguments) for one join kernel over two
+    adversarial tables: vocabulary 4096 (lane depth to 32, W = 4096) and
+    128 (D = 1, W = 128)."""
+    import torch
+
+    from pandelos_tpu_torch.ops.lane_join import pack_lane_device_core
+    from pandelos_tpu_torch.ops.pair_join import pack_profiles
+
+    wide = kind != "lane2"
+    for vocab in (4096, 128):
+        ids, cnt, dg, n_genes, rng = adversarial_profiles(
+            seed, vocab=vocab, max_count=1000 if wide else 256,
+            id_base=(1 << 23) + 5 if wide else 0)
+        ids_d = torch.from_numpy(ids).to(device)
+        cnt_d = torch.from_numpy(cnt).to(device)
+        if kind == "roll":
+            head = (pack_profiles(ids_d, cnt_d),)
+        else:
+            head = (pack_lane_device_core(ids_d, cnt_d, max(1, int(dg.max())),
+                                          packed=not wide),
+                    torch.from_numpy(dg).to(device))
+        for label, a, b in adversarial_pairs(rng, n_genes, ids.shape[0]):
+            yield f"vocab {vocab}, {label}", head + (
+                torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
 
 
 def _bound(nbytes, ops):
@@ -362,7 +466,23 @@ def main() -> int:
             f"{r[1]:.1f} ms, bound {r[3]:.4f} ms ({r[4]}), per-pair row "
             f"traffic {r[5]:.4f} ms")
         del args
+    for seed, jk in enumerate(JOINS):
+        kernel, plain = join_fns(jk)
+        n_lists = n_pairs = 0
+        for label, args in adversarial_join_cases(jk, dev, 20 + seed):
+            got = kernel(*args)
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            for g, w in zip(got, plain(*args)):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{jk} kernel != plain on adversarial list: {label}")
+            n_lists += 1
+            n_pairs += args[-1].shape[0]
+        log(3, f"{jk} adversarial tables: {n_lists} pair lists, {n_pairs} "
+            f"pairs, each bit-equal to plain after a synchronize")
     log(3, f"launches in phase 3 (kernel checks, not a path): {launches()}")
+    if sys.argv[1:] == ["--kernels-only"]:
+        return 0
 
     # 4. division parity: torch f32 division on the card == numpy
     rng = np.random.default_rng(4)

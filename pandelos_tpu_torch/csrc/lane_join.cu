@@ -17,25 +17,28 @@
 // slots past a gene's own depth change nothing.  Equality is a plain
 // id_a == id_b, so any id and any count work.
 //
-// Design.  lane2_join.cu's: one warp per pair, each thread owns 4
-// adjacent lanes and reads them with one 16-byte load of ids and one of
-// counts per depth row; the loop bounds are the pair's own per-gene
-// depths dg[a] and dg[b], and rows are read by gene index.  The TPU
-// kernel's banded window over b slots (per-slot id ranges, cross-lane
-// min/max reductions per octet) and its gather-then-kernel split were
-// TPU scheduling: they change no counter and are gone.  Counters are
-// int32 (exact: a profile's total count is at most its length - k + 1,
-// below 2^24), reduced across the warp with shuffles and stored as f32.
+// Design.  One warp per pair, each thread owns 4 adjacent lanes and reads
+// them with one 16-byte load of ids and one of counts per depth row; the
+// loop bounds are the pair's own per-gene depths dg[a] and dg[b], and
+// rows are read by gene index.  The TPU kernel's banded window over b
+// slots (per-slot id ranges, cross-lane min/max reductions per octet)
+// and its gather-then-kernel split were TPU scheduling: they change no
+// counter and are gone.  Counters are int32 (exact: a profile's total
+// count is at most its length - k + 1, below 2^24), reduced across the
+// warp with shuffles and stored as f32.
 //
 // What bounds it on this card.  Its floor is the larger of its bytes
 // (each named row read once up to its depth, dg * 128 * 8 bytes, plus
 // the pair indices and the three outputs) at 3.35 TB/s and its
-// dg[a] * dg[b] * 128 compare-and-add steps at the CUDA cores' rate.  Like
-// lane2 it reads both rows of every pair from memory, twice lane2's
-// bytes per row (ids and counts apart), so its time follows the
-// per-pair row traffic, (dg[a] + dg[b]) * 1024 bytes per pair; PERF.md
-// holds the numbers from chip_smoke.py.  Reusing the a row across its
-// run of pairs is the route to the floor, as for lane2.
+// dg[a] * dg[b] * 128 compare-and-add steps at the CUDA cores' rate.  It
+// reads both rows of every pair from memory, but that is not what holds
+// it: the lane2 kernel of the same shape ran at the same rate with its
+// rows in L1, and this loop spends 7.5 instructions a lane step
+// (PERF.md holds the numbers of probe_joins.py and chip_smoke.py).
+// lane2_join.cu's present design (the a row kept in shared memory for
+// its run of pairs, b rows by bulk copy, a tile of a depths in registers
+// against two b depths a step) carries over to this table and is the
+// route toward the floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -51,12 +51,13 @@ def _so_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def _start_build(src: str, so: str) -> subprocess.Popen:
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _start_build(src: str, so: str, defines=()) -> subprocess.Popen:
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src,
+        *(f"-D{d}" for d in defines),
     ]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -98,6 +99,21 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return times
+
+
+def build_profiled(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with ``-DPT_PROFILE`` (phase timers in the
+    kernel and a ``pt_profile_read`` entry point), beside the plain
+    build; for measurement scripts, on no path of the package."""
+    src = os.path.join(CSRC, name + ".cu")
+    so = _so_path(src)[:-3] + "_profile.so"
+    if not os.path.exists(so):
+        proc = _start_build(src, so, defines=["PT_PROFILE"])
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(proc.pt_cmd)} failed:\n{out}")
+        os.replace(proc.pt_tmp, so)
+    return ctypes.CDLL(so)
 
 
 def load(name: str) -> ctypes.CDLL:

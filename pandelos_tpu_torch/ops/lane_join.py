@@ -219,14 +219,22 @@ def _check_args(table, dg, a_idx, b_idx, row_unit):
         )
 
 
-def check_pair_indices(a_idx, b_idx, G_pad: int):
-    """Raise unless every pair index lies in [0, G_pad): a kernel reads
-    rows by index (one device-to-host sync)."""
-    lims = torch.stack([torch.minimum(a_idx.min(), b_idx.min()),
-                        torch.maximum(a_idx.max(), b_idx.max())]).tolist()
-    if lims[0] < 0 or lims[1] >= G_pad:
+def check_pair_indices(a_idx, b_idx, G_pad: int, dg=None, D: int = 0):
+    """Raise unless every pair index lies in [0, G_pad) and, with ``dg``,
+    every depth in [0, D]: a kernel reads rows by index and depth (one
+    device-to-host sync for all of it)."""
+    lims = [*torch.aminmax(a_idx), *torch.aminmax(b_idx)]
+    if dg is not None:
+        lims += torch.aminmax(dg)
+    lims = torch.stack(lims).tolist()
+    lo, hi = min(lims[0], lims[2]), max(lims[1], lims[3])
+    if lo < 0 or hi >= G_pad:
         raise ValueError(
-            f"pair indices span [{lims[0]}, {lims[1]}], outside [0, {G_pad})"
+            f"pair indices span [{lo}, {hi}], outside [0, {G_pad})"
+        )
+    if dg is not None and (lims[4] < 0 or lims[5] > D):
+        raise ValueError(
+            f"depths span [{lims[4]}, {lims[5]}], outside [0, {D}]"
         )
 
 
@@ -256,12 +264,10 @@ def _lane_join(wrapper, plain, row_unit, table, dg, a_idx, b_idx):
     )
     if P == 0:
         return outs
-    check_pair_indices(a_idx, b_idx, G_pad)
-    dlims = torch.stack([dg.min(), dg.max()]).tolist()
-    if dlims[0] < 0 or dlims[1] > D:
-        raise ValueError(
-            f"depths span [{dlims[0]}, {dlims[1]}], outside [0, {D}]"
-        )
+    check_pair_indices(a_idx, b_idx, G_pad, dg, D)
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned: the kernel reads "
+                         "its rows with 16-byte loads")
     from pandelos_tpu_torch import kernels
 
     fn = getattr(kernels.load(name), "pt_" + name)

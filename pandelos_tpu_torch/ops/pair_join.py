@@ -11,10 +11,12 @@ counters of the reference's scoring kernel (``library.cpp:475-477``)::
 
 The table is ``[G_pad, 2W]`` int32, one row per gene: the ``pad_profiles``
 ids (id-sorted, left-packed, distinct) then their counts; padding slots
-have count 0 (and id ``vocab_size``, which no real id equals).  Both rows
-of a pair are sorted, so the join is a sorted search: every entry of
-row A is looked up in row B.  The JAX package's TPU kernel rotates the B
-tile through all 128 lane alignments instead; it gives the same counters.
+have count 0 (and id ``vocab_size``, which no real id equals).  The plain
+version searches every entry of row A in the sorted row B; the CUDA
+kernel builds a hash table of row A in shared memory, once per run of
+pairs that share it, and looks every entry of row B up in it.  The JAX
+package's TPU kernel rotates the B tile through all 128 lane alignments
+instead.  All three give the same counters.
 
 ``join_pairs_core`` runs the CUDA kernel ``csrc/pair_join.cu`` on CUDA
 tensors and :func:`join_pairs_plain` on CPU tensors;
@@ -31,6 +33,21 @@ import torch
 from pandelos_tpu_torch.ops.lane_join import check_pair_indices
 
 _INT32_MAX = 2**31 - 1
+# one block of an H100 may use 227 KB of shared memory; the kernel's
+# block keeps a hash table of 8-byte slots, at least the next power of two
+# above 2W of them, and _SMEM_FIXED_BYTES of rings and pair data
+# (csrc/pair_join.cu: Layout)
+_SMEM_BYTES_PER_BLOCK = 227 * 1024
+_SMEM_FIXED_BYTES = (8 * 2 * 2 * 128 + 8 * 2 * 4 + 6 * 256 + 8) * 4
+
+
+def kernel_smem_bytes(W: int) -> int:
+    """Shared memory the kernel's block needs at least for rows of padded
+    width ``W``."""
+    slots = 64
+    while slots < 2 * W:
+        slots *= 2
+    return slots * 8 + _SMEM_FIXED_BYTES
 
 
 def pack_profiles(ids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -94,9 +111,9 @@ def _check_args(all_pair, a_idx, b_idx):
 
 
 _ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -118,18 +135,33 @@ def join_pairs_core(all_pair, a_idx, b_idx):
     )
     if P == 0:
         return outs
-    check_pair_indices(a_idx, b_idx, all_pair.shape[0])
+    G_pad, W = all_pair.shape[0], all_pair.shape[1] // 2
+    check_pair_indices(a_idx, b_idx, G_pad)
+    need = kernel_smem_bytes(W)
+    if need > _SMEM_BYTES_PER_BLOCK:
+        raise ValueError(
+            f"rows of width W={W} do not fit shared memory: the kernel's "
+            f"table of a row takes {need} bytes, a block may use "
+            f"{_SMEM_BYTES_PER_BLOCK}"
+        )
+    if W % 4 or all_pair.data_ptr() % 16:
+        raise ValueError(
+            f"the kernel copies rows in 16-byte pieces: W={W} must be a "
+            f"multiple of 4 and all_pair 16-byte aligned"
+        )
     from pandelos_tpu_torch import kernels
 
     fn = kernels.load("pair_join").pt_pair_join
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES
+    # scratch for the row widths, which a kernel of the same launch finds
+    widths = torch.empty(G_pad, dtype=torch.int32, device=all_pair.device)
     with torch.cuda.device(all_pair.device):
         stream = torch.cuda.current_stream(all_pair.device).cuda_stream
         rc = fn(
-            all_pair.data_ptr(), all_pair.shape[1] // 2, a_idx.data_ptr(),
-            b_idx.data_ptr(), P, outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr(), stream,
+            all_pair.data_ptr(), W, G_pad, a_idx.data_ptr(),
+            b_idx.data_ptr(), P, widths.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"pair_join kernel launch failed: cudaError {rc}")

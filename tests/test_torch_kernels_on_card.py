@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each join kernel against its plain
-PyTorch version bit for bit, no fallback when a kernel cannot load, and
-the engine's paths to the goldens through the kernels.  Every test needs
+PyTorch version bit for bit (seeded tables, then adversarial tables and
+pair lists), the wrappers' refusals, no fallback when a kernel cannot
+load, and the engine's paths to the goldens through the kernels.  Every test needs
 an NVIDIA card and skips without one.  The file imports neither JAX nor
 the JAX package, so it also runs where JAX is absent:
 
@@ -77,6 +78,59 @@ def test_kernel_matches_plain_on_card(card, kind):
     assert fn.launches == launches + 1
     for g, w in zip(got, plain(*args)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lane2", "lane", "roll"])
+def test_kernel_matches_plain_on_adversarial_lists(card, kind):
+    """Runs of one a across chunk and block edges, an a that changes at
+    every pair, a == b, the padding gene on either side, empty and
+    full-width rows, depths at and past the kernels' tile and stage
+    depths, D = 1, and lists that are no multiple of a chunk."""
+    from chip_smoke import adversarial_join_cases, join_fns
+
+    fn, plain = join_fns(kind)
+    n_lists = 0
+    for label, args in adversarial_join_cases(kind, card, 31):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(*args)):
+            assert torch.equal(g, w), label
+        n_lists += 1
+    assert n_lists == 18
+
+
+@pytest.mark.cuda
+def test_pair_join_refuses_rows_too_wide_for_shared_memory(card):
+    z = torch.zeros(8, dtype=torch.int32, device=card)
+    wide = torch.zeros((4, 2 * 8196), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="do not fit shared memory"):
+        tpj.join_pairs_core(wide, z, z)
+    widest = torch.zeros((4, 2 * 8192), dtype=torch.int32, device=card)
+    for out in tpj.join_pairs_core(widest, z, z):
+        assert float(out.abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["lane2_join", "join_pairs_core"])
+def test_kernels_refuse_a_misaligned_table(card, wrapper):
+    """Rows are copied in 16-byte pieces: a table that starts 4 bytes
+    into an allocation is refused, and so is a pair table whose W is no
+    multiple of 4."""
+    z = torch.zeros(8, dtype=torch.int32, device=card)
+    flat = torch.zeros(4 * 256 + 1, dtype=torch.int32, device=card)
+    table = flat[1:].view(4, 256)
+    assert table.is_contiguous() and table.data_ptr() % 16
+    if wrapper == "lane2_join":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tlj.lane2_join(table, torch.zeros(4, dtype=torch.int32,
+                                              device=card), z, z)
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        tpj.join_pairs_core(table, z, z)
+    odd = torch.zeros((4, 2 * 130), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tpj.join_pairs_core(odd, z, z)
 
 
 @pytest.mark.cuda

@@ -248,3 +248,103 @@ def test_lane2_join_rejects_bad_arguments(bad):
         err = ValueError
     with pytest.raises(err):
         tlj.lane2_join(table, dg, a, b)
+
+
+# --- the arithmetic of csrc/lane2_join.cu, modelled in numpy -------------
+#
+# No CUDA kernel runs on the CPU, so the step the kernel relies on is held
+# against the plain version here: a warp takes a chunk of 32 pair slots,
+# keeps the a row while the pair's a stays, walks it in tiles of up to 4
+# depths (a remainder of 1..3 takes a smaller tile), takes
+# m = min over the b rows of (y - (x & ~255)) as uint32, two rows a step
+# and a single row for an odd depth, and accounts once per a slot
+# (m < 256: cb = m, ca = x & 255).
+
+_CHUNK, _TILE_A = 32, 4
+
+
+def _lane2_kernel_model(table, dg, a_idx, b_idx):
+    t3 = table.reshape(table.shape[0], -1, 128).view(np.uint32)
+    P = len(a_idx)
+    out = np.zeros((3, P), np.int64)
+    for p0 in range(0, P, _CHUNK):
+        cur_a, row_a = None, None
+        for p in range(p0, min(P, p0 + _CHUNK)):
+            a, b = int(a_idx[p]), int(b_idx[p])
+            Da, Db = int(dg[a]), int(dg[b])
+            if a != cur_a:  # the a row is loaded when a changes
+                cur_a, row_a = a, t3[a, :Da]
+            if Db == 0:
+                continue
+            for a0 in range(0, Da, _TILE_A):
+                x = row_a[a0:min(Da, a0 + _TILE_A)]
+                nx = (~(x & np.uint32(0xFFFFFF00)) + np.uint32(1))  # -(x & ~255)
+                m = np.full(x.shape, 0xFFFFFFFF, np.uint32)
+                for db in range(0, Db - 1, 2):
+                    d0 = t3[b, db][None, :] + nx  # wraps mod 2^32
+                    d1 = t3[b, db + 1][None, :] + nx
+                    m = np.minimum(m, np.minimum(d0, d1))
+                if Db % 2:
+                    m = np.minimum(m, t3[b, Db - 1][None, :] + nx)
+                hit = m < 256
+                ca = (x & np.uint32(255)).astype(np.int64)
+                cb = m.astype(np.int64)
+                out[0, p] += np.minimum(ca, cb)[hit].sum()
+                out[1, p] += ca[hit].sum()
+                out[2, p] += cb[hit].sum()
+    return out
+
+
+@pytest.mark.parametrize("vocab", [2304, 128])
+@pytest.mark.parametrize("case", range(9))
+def test_lane2_kernel_step_model_matches_plain(vocab, case):
+    """Empty and full-depth rows, depths at and past the a tile and the
+    staged depth, counts 1..255, a == b, padding genes and runs that cross
+    chunk edges; vocab 128 gives D = 1."""
+    from chip_smoke import adversarial_pairs, adversarial_profiles
+
+    ids, cnt, dg, n_genes, rng = adversarial_profiles(11, vocab=vocab,
+                                                      n_random=6)
+    D = max(1, int(dg.max()))
+    assert D == vocab // 128 and cnt.max() == 255 and cnt[cnt > 0].min() == 1
+    table = tlj.pack_lane_device_core(torch.from_numpy(ids),
+                                      torch.from_numpy(cnt), D)
+    label, a, b = list(adversarial_pairs(rng, n_genes, ids.shape[0]))[case]
+    want = tlj.lane2_join_plain(table, torch.from_numpy(dg),
+                                torch.from_numpy(a), torch.from_numpy(b))
+    with np.errstate(over="ignore"):
+        got = _lane2_kernel_model(table.numpy(), dg, a, b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy().astype(np.int64), label)
+
+
+def test_lane2_match_is_difference_below_256():
+    """The identity under the kernel's step, on every kind of slot: with
+    nx = -(x & ~255) as uint32, y + nx is y's count when the ids are
+    equal, at least 256 for different ids and for a real slot against an
+    empty one (either way), and 0 for two empty slots."""
+    rng = np.random.default_rng(0)
+    n = 4000
+    idv = rng.integers(0, 1 << 23, size=n).astype(np.int64)
+    idv[:4] = [0, 0, (1 << 23) - 1, (1 << 23) - 1]
+    ido = idv ^ rng.integers(1, 1 << 23, size=n)
+    ido[:4] = [1, (1 << 23) - 1, 0, (1 << 23) - 2]
+    ca = rng.integers(1, 256, size=n)
+    cb = rng.integers(1, 256, size=n)
+    ca[:8], cb[:8] = 255, 1
+
+    def u32(v):
+        return np.asarray(v, np.int64).astype(np.int32).view(np.uint32)
+
+    x, same, other = u32((idv << 8) | ca), u32((idv << 8) | cb), u32(
+        (ido << 8) | cb)
+    empty = u32(np.full(n, -256))
+    with np.errstate(over="ignore"):
+        def diff(xx, yy):
+            return yy + (~(xx & np.uint32(0xFFFFFF00)) + np.uint32(1))
+
+        np.testing.assert_array_equal(diff(x, same), cb)
+        assert (diff(x, other) >= 256).all()
+        assert (diff(x, empty) >= 256).all()
+        assert (diff(empty, x) >= 256).all()
+        assert (diff(empty, empty) == 0).all()

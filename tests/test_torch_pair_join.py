@@ -152,3 +152,99 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(wrapper):
         fn = getattr(tlj, wrapper)
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*args)
+
+
+# --- the arithmetic of csrc/pair_join.cu, modelled in numpy --------------
+#
+# No CUDA kernel runs on the CPU, so what the kernel relies on is held
+# against the plain version here: row A goes into an open-addressing hash
+# table (slots of {id, count}, count 0 = free, multiplicative hash, linear
+# probing; a power of two of slots, at least 8 times the row's width up
+# to the block's allotment, which is at least twice the padded width) in
+# whatever order the threads get there, and every entry of row B is
+# looked up: a free slot ends the lookup without a match, a slot with the
+# entry's id is the match.
+
+_HASH_MUL = 0x9E3779B1
+
+
+def _pow2_at_least(n):
+    p = 64
+    while p < n:
+        p *= 2
+    return p
+
+
+def _hash_join_model(ai, ac, bi, bc, slots, order):
+    run_slots = min(slots, _pow2_at_least(8 * len(ai)))
+    shift = 32 - (run_slots.bit_length() - 1)
+    mask = run_slots - 1
+    ids = np.zeros(run_slots, np.int64)
+    cnt = np.zeros(run_slots, np.int64)
+
+    def first_slot(v):
+        return (((int(v) & 0xFFFFFFFF) * _HASH_MUL) & 0xFFFFFFFF) >> shift
+
+    for u in order:  # any insertion order gives the same lookups
+        h = first_slot(ai[u])
+        while cnt[h] != 0:
+            h = (h + 1) & mask
+        ids[h], cnt[h] = ai[u], ac[u]
+    inter = perc = tr = 0
+    for v, c in zip(bi, bc):
+        h = first_slot(v)
+        while cnt[h] != 0:
+            if ids[h] == v:
+                inter += min(int(cnt[h]), int(c))
+                perc += int(cnt[h])
+                tr += int(c)
+                break
+            h = (h + 1) & mask
+    return inter, perc, tr
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_hash_join_model_matches_plain(case):
+    """Widths 0, 1 and W (no count-0 slot), unequal widths, a == b and
+    padding genes, counts to 999 and ids past 2^23; the table at its
+    tightest (twice the padded width)."""
+    from chip_smoke import adversarial_pairs, adversarial_profiles
+
+    ids, cnt, _, n_genes, rng = adversarial_profiles(
+        12, vocab=256, n_random=10, max_count=1000, id_base=(1 << 23) + 5)
+    W = ids.shape[1]
+    widths = (cnt > 0).sum(1)
+    assert {0, 1, W} <= set(widths.tolist())
+    table = tpj.pack_profiles(torch.from_numpy(ids), torch.from_numpy(cnt))
+    label, a, b = list(adversarial_pairs(rng, n_genes, ids.shape[0]))[case]
+    want = [w.numpy() for w in tpj.join_pairs_plain(
+        table, torch.from_numpy(a), torch.from_numpy(b))]
+    for p in range(len(a)):
+        wa, wb = widths[a[p]], widths[b[p]]
+        got = _hash_join_model(ids[a[p], :wa], cnt[a[p], :wa],
+                               ids[b[p], :wb], cnt[b[p], :wb],
+                               slots=_pow2_at_least(2 * W),
+                               order=rng.permutation(wa))
+        assert got == tuple(int(w[p]) for w in want), (label, p)
+
+
+def test_hash_join_model_takes_any_int32_id():
+    """Negative ids and INT32_MAX are ids like any other: a slot is free
+    by its count, not by its id."""
+    ai = np.array([-(2 ** 31), -1, 0, 7, 2 ** 31 - 1], np.int64)
+    ac = np.array([3, 1, 4, 1, 5], np.int64)
+    bi = np.array([-1, 0, 8, 2 ** 31 - 1], np.int64)
+    bc = np.array([2, 9, 1, 7], np.int64)
+    assert _hash_join_model(ai, ac, bi, bc, 64, range(5)) == (
+        1 + 4 + 5, 1 + 4 + 5, 2 + 9 + 7)
+
+
+@pytest.mark.parametrize("W,ok", [(768, True), (4096, True), (8192, True),
+                                  (8196, False), (16384, False)])
+def test_shared_memory_limit_of_the_pair_join(W, ok):
+    """The table of a row (8-byte slots, the next power of two above 2W)
+    and 22,816 bytes of rings and pair data against the 227 KB a block
+    may use: the widest padded width the kernel takes is 8192."""
+    need = tpj.kernel_smem_bytes(W)
+    assert need == _pow2_at_least(2 * W) * 8 + 22816
+    assert (need <= tpj._SMEM_BYTES_PER_BLOCK) == ok
