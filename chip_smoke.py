@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels from ``pandelos_tpu_torch/csrc`` (lane2,
 lane and pair joins), holds each against its plain PyTorch version on
 the card on seeded random tables, on adversarial tables and pair lists
-(chunk edges, tile-depth boundaries, empty and full rows, padding genes)
+(chunk edges, tile-depth boundaries, empty and full rows, padding genes;
+for the lane kernel also rows 128, 129 and 130 deep)
 and at the shapes of the runs below,
 checks the device division and the bound bits against the host, and
 drives the engine (``.faa`` -> ``.net`` + ``.clus``, backend ``"cuda"``)
@@ -227,6 +228,79 @@ def adversarial_join_cases(kind, device, seed):
         for label, a, b in adversarial_pairs(rng, n_genes, ids.shape[0]):
             yield f"vocab {vocab}, {label}", head + (
                 torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+
+
+def deep_profiles(seed, max_count=1000, id_base=(1 << 23) + 5):
+    """Seeded padded profiles (the pad_profiles layout) whose lane depths
+    pass 128, the depths that one block of the lane kernel's b loop can
+    name: a row with every lane exactly 128 deep, rows 129 and 130 deep
+    in a few lanes, two half-filled random rows whose shared ids sit at
+    different depths than in the deep rows, a single id, an empty
+    profile; then two all-padding genes.  ``id_base`` is a multiple of
+    128 plus 5, so lanes are rotated.  Returns (ids, counts, dg,
+    n_genes, rng)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = np.arange(256)
+
+    def lanes(depths):  # {lane: its ranks k} -> sorted ids
+        return np.sort(np.concatenate(
+            [lane + 128 * np.asarray(ks) for lane, ks in depths.items()]))
+
+    rows = [
+        lanes({lane: k[:128] for lane in range(128)}),
+        lanes({0: k[:129], 5: k[:129], 127: k[:100], 64: k[:1]}),
+        lanes({3: k[:130], 0: k[50:179], 127: k[:128], 9: k[::2]}),
+        lanes({0: k[100:230], 3: k[1:130:2], 126: k[:129]}),
+        np.flatnonzero(rng.random(130 * 128) < 0.5),
+        np.flatnonzero(rng.random(130 * 128) < 0.5),
+        np.array([129 * 128 + 3]),
+        np.zeros(0, np.int64),
+    ]
+    n_genes = len(rows)
+    G_pad = n_genes + 2
+    vocab = 256 * 128
+    W = -(-max(len(v) for v in rows) // 128) * 128
+    ids = np.full((G_pad, W), id_base + vocab, np.int32)
+    cnt = np.zeros((G_pad, W), np.int32)
+    dg = np.zeros(G_pad, np.int32)
+    for g, v in enumerate(rows):
+        w = len(v)
+        ids[g, :w] = id_base + v
+        cnt[g, :w] = rng.integers(1, max_count, size=w)
+        cnt[g, :w:7] = max_count - 1
+        if w:
+            dg[g] = np.bincount((id_base + v) & 127, minlength=128).max()
+    return ids, cnt, dg, n_genes, rng
+
+
+def deep_pairs(rng, n_genes, G_pad):
+    """A short pair list over the deep rows: every pair of them (so each
+    a comes as a run), then a == b and a padding gene."""
+    import numpy as np
+
+    aa, bb = np.meshgrid(np.arange(n_genes), np.arange(n_genes),
+                         indexing="ij")
+    a = np.concatenate([aa.ravel(), np.arange(G_pad), [n_genes, 0]])
+    b = np.concatenate([bb.ravel(), np.arange(G_pad), [1, n_genes + 1]])
+    return a.astype(np.int32), b.astype(np.int32)
+
+
+def deep_join_case(device, seed):
+    """Wrapper arguments of the lane kernel on the deep rows (lane depths
+    128, 129 and 130: D = 130)."""
+    import torch
+
+    from pandelos_tpu_torch.ops.lane_join import pack_lane_device_core
+
+    ids, cnt, dg, n_genes, rng = deep_profiles(seed)
+    table = pack_lane_device_core(
+        torch.from_numpy(ids).to(device), torch.from_numpy(cnt).to(device),
+        int(dg.max()), packed=False)
+    a, b = deep_pairs(rng, n_genes, ids.shape[0])
+    return (table, torch.from_numpy(dg).to(device),
+            torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
 
 
 def _bound(nbytes, ops):
@@ -480,6 +554,16 @@ def main() -> int:
             n_pairs += args[-1].shape[0]
         log(3, f"{jk} adversarial tables: {n_lists} pair lists, {n_pairs} "
             f"pairs, each bit-equal to plain after a synchronize")
+    args = deep_join_case(dev, 40)
+    got = lane_join.lane_join(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, lane_join.lane_join_plain(*args)):
+        if not torch.equal(g, w):
+            raise AssertionError("lane kernel != plain on the deep rows")
+    log(3, f"lane deep rows (table {tuple(args[0].shape)}, depths "
+        f"{sorted(set(args[1].tolist()))}, {args[2].shape[0]} pairs): "
+        f"bit-equal to plain after a synchronize")
+    del args
     log(3, f"launches in phase 3 (kernel checks, not a path): {launches()}")
     if sys.argv[1:] == ["--kernels-only"]:
         return 0

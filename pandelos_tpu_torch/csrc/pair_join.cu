@@ -59,23 +59,11 @@
 // when three such blocks fit an SM, else above 2W; the wrapper refuses a
 // W whose smaller table does not fit one block (W > 8192).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#ifdef PT_PROFILE
+// phase timers of a -DPT_PROFILE build (hopper_async.cuh):
 // cycles per phase, summed over warps: 0 table build (with its barriers),
 // 1 tile request, 2 wait for the tile, 3 lookups, 4 reduce, 5 barrier at
 // the end of a run
-__device__ unsigned long long g_profile[8];
-#define PT_TICK(k)                          \
-  {                                         \
-    const long long now_ = clock64();       \
-    prof_[k] += now_ - last_;               \
-    last_ = now_;                           \
-  }
-#else
-#define PT_TICK(k)
-#endif
+#include "hopper_async.cuh"
 
 namespace {
 
@@ -88,44 +76,6 @@ constexpr int kStages = 2;
 constexpr int kSmemPerBlock = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kHashMul = 0x9E3779B1u;  // 2^32 / golden ratio
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(void* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(void* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(void* bar, int parity) {
-  unsigned ok;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
-// One thread asks for `bytes` (a multiple of 16, both ends 16-byte
-// aligned) to be copied from global to shared memory; the copy reports
-// its bytes to the barrier.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
-                                          void* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // widths[r] = number of leading entries of row r with count > 0 (counts
 // are left-packed)
@@ -407,15 +357,3 @@ extern "C" int pt_pair_join(const int* table, long long W, long long n_rows,
                                              tr);
   return (int)cudaGetLastError();
 }
-
-#ifdef PT_PROFILE
-// Copies the phase timers to `out` (8 values) and zeroes them.
-extern "C" int pt_profile_read(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, g_profile, sizeof(unsigned long long) * 8);
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_profile, zero, sizeof(zero));
-  return (int)err;
-}
-#endif

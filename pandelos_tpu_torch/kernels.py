@@ -4,8 +4,9 @@ Every source under ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers: ``nvcc`` then takes seconds, not minutes).
 Libraries go to ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of their source, so an edited source is rebuilt and an
-unchanged one is reused within a checkout.  Nothing is built or imported
+named by a hash of their source and of the headers (``csrc/*.cuh``) the
+sources share, so an edited source or header is rebuilt and an unchanged
+one is reused within a checkout.  Nothing is built or imported
 when this module is imported: the CPU tests import every module.
 """
 
@@ -45,8 +46,14 @@ def _nvcc() -> str:
 
 
 def _so_path(src: str) -> str:
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    headers = sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")
+    )
+    sha = hashlib.sha1()
+    for path in [src, *headers]:
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    digest = sha.hexdigest()[:12]
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 

@@ -301,7 +301,9 @@ def lane_join(table, dg, a_idx, b_idx):
     """:func:`lane2_join` over the unpacked lane ``table`` [G_pad,
     2*D*128] (ids then counts): any count and id, the fallback for
     inputs lane2 cannot pack.  CUDA tensors launch ``csrc/lane_join.cu``
-    (or raise); CPU tensors take :func:`lane_join_plain`."""
+    (or raise); CPU tensors take :func:`lane_join_plain`.  The kernel
+    relies on the table's lane rule (a valid id ``v`` sits in lane
+    ``v & 127``, as :func:`pack_lane_device_core` lays it)."""
     return _lane_join(lane_join, lane_join_plain, 2 * _LANE,
                       table, dg, a_idx, b_idx)
 

@@ -1,16 +1,25 @@
-"""What binds the lane2 and pair join kernels on the card.
+"""What binds the lane2, lane and pair join kernels on the card.
 
     python3 -m pandelos_tpu_torch.probe_joins [--out DIR] [--tag NAME]
+        [--kinds lane2,lane,lane_cells,roll]
 
-(``DIR`` defaults to ``build/join_probe``.)
+(``DIR`` defaults to ``build/join_probe``; ``--kinds`` names the runs to
+probe, all four by default.)
 
 Run from the root of the checkout on a machine with one NVIDIA card.
-It builds the kernels, runs ``bench_cache/mycoplasma64.faa`` through the
-default path (lane2) and the roll path to capture each kernel's table and
-pair list, and then reports, as JSON lines and into
-``DIR/join_probe_<tag>.json``:
+It builds the kernels and runs ``bench_cache/mycoplasma64.faa`` through
+one path per kind to capture the kernel's table and pair list: the
+default path (``lane2``), ``join_kernel="lane"`` with device BBH
+(``lane``: lane2's 2,097,152 pair slots, so the two compare step for
+step), the cells path with the lane kernel (``lane_cells``: the upper
+triangle's 1,048,576 slots) and the roll path (``roll``).  It then
+reports, as JSON lines and into ``DIR/join_probe_<tag>.json``:
 
 - ``card``: name, power limit and SM clocks from ``nvidia-smi``;
+- ``int_rates``: what the card executes, per clock and SM, of the integer
+  instructions the lane steps are made of (add, logic, minimum,
+  three-way minimum, fused add-and-minimum, multiply-add, compare and
+  select), from the micro-kernels of ``probe_int_rates.cu``;
 - ``build``: what ``nvcc -Xptxas -v`` said of each kernel;
 - ``sass``: per kernel, every loop of its SASS (a backward branch and
   its target) with its instruction count and opcode histogram; the full
@@ -23,8 +32,8 @@ pair list, and then reports, as JSON lines and into
 - ``timing``: each kernel on the captured list as it is, on the pairs
   whose two genes lie in a window of the width-sorted permutation whose
   table rows fit 30 MB (L2-resident), and with ``b_idx = a_idx`` (rows
-  from L1), with milliseconds, compare (lane2) or merge (pair join) steps
-  per second and per-pair row bytes per second: a rate that holds across
+  from L1), with milliseconds, compare (lane2, lane) or merge (pair join)
+  steps per second and per-pair row bytes per second: a rate that holds across
   the three says instruction throughput binds, one that follows the bytes says
   memory does;
 - ``phases``: each kernel built with ``-DPT_PROFILE`` on the captured
@@ -99,6 +108,22 @@ def sass_loops(so_path: str, listing_path: str) -> dict:
     return out
 
 
+def int_rates(out_dir: str) -> dict:
+    """Builds and runs ``probe_int_rates.cu``: {instruction: chain
+    updates per clock and SM}."""
+    from pandelos_tpu_torch import kernels
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "probe_int_rates.cu")
+    exe = os.path.join(out_dir, "probe_int_rates")
+    subprocess.run([kernels._nvcc(), *kernels.ARCH_FLAGS, "-O3", "-o", exe,
+                    src], check=True)
+    text = subprocess.run([exe], capture_output=True, text=True,
+                          check=True).stdout
+    os.remove(exe)
+    return {ln.split()[0]: float(ln.split()[3]) for ln in text.splitlines()}
+
+
 def pair_stats(pi, pj, dg, widths, n_genes) -> dict:
     """Host-side shape of a captured pair list (numpy int arrays)."""
     real = pi < n_genes
@@ -164,17 +189,27 @@ def variants(cap, unit_of_gene, unit_bytes):
     yield "b = a", pi, pi.clone(), {}
 
 
+def _lane_wrapper(kind):
+    """The wrapper a lane kind (``lane2``, ``lane``, ``lane_cells``)
+    times."""
+    from pandelos_tpu_torch.ops import lane_join
+
+    return lane_join.lane2_join if kind == "lane2" else lane_join.lane_join
+
+
 def probe_kernel(kind, cap, log):
-    from pandelos_tpu_torch.ops import lane_join, pair_join
+    from pandelos_tpu_torch.ops import pair_join
 
     table = cap["table"]
-    if kind == "lane2":
+    if kind != "roll":
         dg = cap["dg"]
         unit = dg.cpu().numpy().astype(np.int64)
-        unit_bytes = 512
+        # a depth row: 128 packed words, or 128 ids and 128 counts
+        unit_bytes = 512 if kind == "lane2" else 1024
+        join = _lane_wrapper(kind)
 
         def call(pi, pj):
-            return lane_join.lane2_join(table, dg, pi, pj)
+            return join(table, dg, pi, pj)
 
         def steps(pi, pj):
             return float((dg[pi.long()].double() * dg[pj.long()].double()
@@ -213,12 +248,23 @@ def probe_kernel(kind, cap, log):
     return unit
 
 
+_LANE_PHASES = ["pair set-up", "a row", "prefetch request",
+                "wait for the b row", "compare and account", "reduce"]
 PHASES = {
-    "lane2": ("lane2_join", ["pair set-up", "a row", "prefetch request",
-                             "wait for the b row", "compare and account",
-                             "reduce"]),
+    "lane2": ("lane2_join", _LANE_PHASES),
+    "lane": ("lane_join", _LANE_PHASES),
+    "lane_cells": ("lane_join", _LANE_PHASES),
     "roll": ("pair_join", ["table build", "tile request", "wait for the tile",
                            "lookups", "reduce", "barrier at the end of a run"]),
+}
+
+
+# kind -> the PipelineConfig fields of the run that captures its inputs
+RUNS = {
+    "lane2": {},
+    "lane": {"join_kernel": "lane"},
+    "lane_cells": {"join_kernel": "lane", "device_bbh": False},
+    "roll": {"join_kernel": "roll"},
 }
 
 
@@ -228,17 +274,18 @@ def probe_phases(kind, cap, log):
     import ctypes
 
     from pandelos_tpu_torch import kernels
-    from pandelos_tpu_torch.ops import lane_join, pair_join
+    from pandelos_tpu_torch.ops import pair_join
 
     source, names = PHASES[kind]
     lib = kernels.build_profiled(source)
     plain_load = kernels.load
     kernels.load = lambda name: lib if name == source else plain_load(name)
     try:
-        if kind == "lane2":
+        if kind != "roll":
+            join = _lane_wrapper(kind)
+
             def call():
-                return lane_join.lane2_join(cap["table"], cap["dg"],
-                                            cap["pi"], cap["pj"])
+                return join(cap["table"], cap["dg"], cap["pi"], cap["pj"])
         else:
             def call():
                 return pair_join.join_pairs_core(cap["table"], cap["pi"],
@@ -266,7 +313,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("build", "join_probe"))
     ap.add_argument("--tag", default="probe")
+    ap.add_argument("--kinds", default=",".join(RUNS),
+                    help="comma-separated runs to probe: " + ", ".join(RUNS))
     args = ap.parse_args()
+    kinds = args.kinds.split(",")
+    if not set(kinds) <= set(RUNS):
+        ap.error(f"--kinds takes {', '.join(RUNS)}")
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
@@ -289,6 +341,7 @@ def main() -> int:
     log({"card": {"name_power_limit": _smi("name,power.limit"),
                   "clocks_sm_now_max_mhz": _smi("clocks.sm,clocks.max.sm"),
                   "torch": torch.__version__, "cuda": torch.version.cuda}})
+    log({"int_rates": int_rates(args.out)})
     kernels.build_all()
     log({"build": {k: [ln.strip() for ln in v["nvcc"].splitlines()
                        if "registers" in ln or "spill" in ln
@@ -302,17 +355,18 @@ def main() -> int:
     log({"sass": sass})
 
     outdir = tempfile.mkdtemp(prefix="pandelos_probe_")
+    dg = None
     try:
-        for kind, config in (("lane2", {}), ("roll", {"join_kernel": "roll"})):
+        for kind in kinds:
             cap = {}
-            cs.run(cs.MAIN, outdir, capture=cap, tag="_" + kind, **config)
-            if cap["join_kernel"] != kind:
+            cs.run(cs.MAIN, outdir, capture=cap, tag="_" + kind, **RUNS[kind])
+            if cap["join_kernel"] != RUNS[kind].get("join_kernel", "lane2"):
                 raise AssertionError(f"joined with {cap['join_kernel']}")
             unit = probe_kernel(kind, cap, log)
             probe_phases(kind, cap, log)
-            if kind == "lane2":
+            if kind != "roll":
                 dg = unit
-            else:
+            elif dg is not None:
                 n_genes = cap["index"].n_sequences
                 log({"pairs": pair_stats(
                     cap["pi"].cpu().numpy(), cap["pj"].cpu().numpy(), dg,

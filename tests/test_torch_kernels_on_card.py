@@ -101,6 +101,20 @@ def test_kernel_matches_plain_on_adversarial_lists(card, kind):
 
 
 @pytest.mark.cuda
+def test_lane_kernel_matches_plain_on_deep_rows(card):
+    """Lane depths 128, 129 and 130: more b depths than one block of the
+    kernel's b loop can name."""
+    from chip_smoke import deep_join_case
+
+    args = deep_join_case(card, 41)
+    assert int(args[1].max()) == 130
+    got = tlj.lane_join(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, tlj.lane_join_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_pair_join_refuses_rows_too_wide_for_shared_memory(card):
     z = torch.zeros(8, dtype=torch.int32, device=card)
     wide = torch.zeros((4, 2 * 8196), dtype=torch.int32, device=card)

@@ -348,3 +348,135 @@ def test_lane2_match_is_difference_below_256():
         assert (diff(x, empty) >= 256).all()
         assert (diff(empty, x) >= 256).all()
         assert (diff(empty, empty) == 0).all()
+
+
+# --- the arithmetic of csrc/lane_join.cu, modelled in numpy --------------
+#
+# The lane kernel walks chunks, a rows and tiles as lane2's does, but its
+# step touches no count: with ky = (y & ~127) | j, j the b depth within a
+# block of 128 depths, and nx = -(x & ~127), it takes m = min(ky + nx) as
+# uint32 over the block (two depths a step, a single one for an odd
+# depth), and after the block accounts once per a slot: m < 128 names the
+# matching depth, whose count is then read from the table's count half.
+
+_BLOCK_DEPTHS = 128
+_LANE_MASK = np.uint32(0xFFFFFF80)
+
+
+def _lane_key(y, nx, j):
+    """(y & ~127 | j) + nx, wrapping mod 2^32."""
+    return ((y & _LANE_MASK) | np.uint32(j)) + nx
+
+
+def _lane_kernel_model(table, dg, a_idx, b_idx):
+    G_pad, W2 = table.shape
+    t4 = table.reshape(G_pad, 2, W2 // 256, 128)
+    ids, cnts = t4[:, 0].view(np.uint32), t4[:, 1].astype(np.int64)
+    lanes = np.arange(128)
+    P = len(a_idx)
+    out = np.zeros((3, P), np.int64)
+    for p0 in range(0, P, _CHUNK):
+        cur_a, neg_a = None, None
+        for p in range(p0, min(P, p0 + _CHUNK)):
+            a, b = int(a_idx[p]), int(b_idx[p])
+            Da, Db = int(dg[a]), int(dg[b])
+            if a != cur_a:  # the a ids are loaded and negated when a changes
+                cur_a = a
+                neg_a = ~(ids[a, :Da] & _LANE_MASK) + np.uint32(1)
+            for a0 in range(0, Da, _TILE_A):
+                nx = neg_a[a0:min(Da, a0 + _TILE_A)]
+                ca = cnts[a, a0:a0 + len(nx)]
+                for j0 in range(0, Db, _BLOCK_DEPTHS):
+                    end = min(Db, j0 + _BLOCK_DEPTHS)
+                    m = np.full(nx.shape, 0xFFFFFFFF, np.uint32)
+                    for j in range(j0, end - 1, 2):
+                        k0 = _lane_key(ids[b, j][None, :], nx, j - j0)
+                        k1 = _lane_key(ids[b, j + 1][None, :], nx, j + 1 - j0)
+                        m = np.minimum(np.minimum(m, k0), k1)
+                    if (end - j0) % 2:
+                        m = np.minimum(m, _lane_key(ids[b, end - 1][None, :],
+                                                    nx, end - 1 - j0))
+                    hit = m < _BLOCK_DEPTHS
+                    depth = np.where(hit, j0 + m.astype(np.int64), 0)
+                    cb = cnts[b][depth, lanes[None, :]]
+                    out[0, p] += np.minimum(ca, cb)[hit].sum()
+                    out[1, p] += ca[hit].sum()
+                    out[2, p] += cb[hit].sum()
+    return out
+
+
+def _assert_lane_model_matches_plain(table, dg, a, b, label):
+    want = tlj.lane_join_plain(table, torch.from_numpy(dg),
+                               torch.from_numpy(a), torch.from_numpy(b))
+    with np.errstate(over="ignore"):
+        got = _lane_kernel_model(table.numpy(), dg, a, b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy().astype(np.int64), label)
+
+
+@pytest.mark.parametrize("vocab", [2304, 128])
+@pytest.mark.parametrize("case", range(9))
+def test_lane_kernel_step_model_matches_plain(vocab, case):
+    """The adversarial tables of the lane2 model, with counts to 999 and
+    ids past 2^23 (what lane2 cannot pack)."""
+    from chip_smoke import adversarial_pairs, adversarial_profiles
+
+    ids, cnt, dg, n_genes, rng = adversarial_profiles(
+        12, vocab=vocab, n_random=6, max_count=1000, id_base=(1 << 23) + 5)
+    D = max(1, int(dg.max()))
+    assert D == vocab // 128 and cnt.max() == 999 and ids.min() > 1 << 23
+    table = tlj.pack_lane_device_core(torch.from_numpy(ids),
+                                      torch.from_numpy(cnt), D, packed=False)
+    label, a, b = list(adversarial_pairs(rng, n_genes, ids.shape[0]))[case]
+    _assert_lane_model_matches_plain(table, dg, a, b, label)
+
+
+def test_lane_kernel_step_model_matches_plain_on_deep_rows():
+    """Lane depths 128, 129 and 130: the b loop runs in blocks of 128
+    depths, matches lie in the second block and at other depths in b than
+    in a."""
+    from chip_smoke import deep_join_case
+
+    table, dg, a, b = deep_join_case("cpu", 40)
+    assert sorted(set(dg.tolist()))[-3:] == [128, 129, 130]
+    assert table.shape[1] == 2 * 130 * 128
+    _assert_lane_model_matches_plain(table, dg.numpy(), a.numpy(), b.numpy(),
+                                     "deep rows")
+
+
+@pytest.mark.parametrize("depth", [0, 1, 126, 127, 128, 129, 255, 269])
+def test_lane_match_is_key_below_128(depth):
+    """The identity under the lane kernel's step, on every kind of slot
+    pair of one lane: with j = depth % 128 (the depth within its block of
+    128), ky = (y & ~127) | j and nx = -(x & ~127), ky + nx as uint32 is j
+    when the ids are equal, at least 128 for two different valid ids of
+    the lane and for a valid slot against an empty one (either way), and
+    j for two empty slots."""
+    rng = np.random.default_rng(depth)
+    n = 4000
+    lane = rng.integers(0, 128, size=n)
+    lane[:4] = [0, 127, 127, 0]
+    hi = rng.integers(0, 1 << 24, size=n)
+    hi[:4] = [0, (1 << 24) - 1, 0, (1 << 24) - 1]  # ids 0 and 2^31 - 1
+    x = (hi << 7) | lane
+    other_hi = hi ^ rng.integers(1, 1 << 24, size=n)  # differs above bit 6
+    other_hi[:4] = [1, (1 << 24) - 2, (1 << 24) - 1, 0]
+    other = (other_hi << 7) | lane
+    assert x.max() == (1 << 31) - 1 and x.min() == 0 and (x != other).all()
+
+    def u32(v):
+        return np.asarray(v, np.int64).astype(np.int32).view(np.uint32)
+
+    def neg(v):
+        return ~(v & _LANE_MASK) + np.uint32(1)
+
+    j = depth % _BLOCK_DEPTHS
+    empty = u32(np.full(n, -1))
+    x, other = u32(x), u32(other)
+    with np.errstate(over="ignore"):
+        assert (_lane_key(x, neg(x), j) == j).all() and j < _BLOCK_DEPTHS
+        assert (_lane_key(other, neg(x), j) >= _BLOCK_DEPTHS).all()
+        assert (_lane_key(x, neg(other), j) >= _BLOCK_DEPTHS).all()
+        assert (_lane_key(empty, neg(x), j) >= 1 << 31).all()
+        assert (_lane_key(x, neg(empty), j) >= _BLOCK_DEPTHS).all()
+        assert (_lane_key(empty, neg(empty), j) == j).all()
