@@ -14,10 +14,13 @@ on ``bench_cache/mycoplasma64.faa`` at full size through each of its
 paths: the default (lane2, device BBH), the cells path with the lane
 kernel (host BBH), the roll join, and lane2's fallback on an input that
 cannot pack (derived from mycoplasma64 with four seeded homopolymer
-tracts); then the four smaller presets.  Every output must be
-byte-identical to its committed golden (the derived input's two runs to
-each other).  Phases print one line each; a ``kernels`` JSON line comes
-before the last line, and the last line is the result object.  Any
+tracts); then the JAX package's kernel-free backends on mycoplasma64,
+each of which must launch none of the join kernels: ``"xla"`` with
+device BBH (the JAX package's default path), ``"xla"`` with the cells
+path, and ``"dense"``; then the four smaller presets.  Every output must
+be byte-identical to its committed golden (the derived input's two runs
+to each other).  Phases print one line each; a ``kernels`` JSON line
+comes before the last line, and the last line is the result object.  Any
 failure exits non-zero without a result; so does a machine without a
 card, and a directory without the package.
 
@@ -30,6 +33,7 @@ prints no result line: the short first call after a kernel changed.
 from __future__ import annotations
 
 import filecmp
+import gc
 import json
 import os
 import shutil
@@ -432,11 +436,30 @@ def check_captured(kind, cap, name):
     return r
 
 
+def check_memory_model(ph, index, cfg, K, allocated, dev):
+    """The memory model that check_hbm_fit reads, at the candidate cap
+    ``K`` that a run reached, must hold the bytes the run allocated."""
+    from pandelos_tpu_torch.config import PipelineConfig
+    from pandelos_tpu_torch.ops.candidate import memory_model
+
+    config = PipelineConfig(**cfg)
+    mm = memory_model(index, config, device=dev, cand_cap=K)
+    if allocated > mm["total_bytes"]:
+        raise AssertionError(f"{cfg}: {allocated} bytes allocated past the "
+                             f"memory model's {mm['total_bytes']}")
+    top = memory_model(index, config, device=dev)["total_bytes"]
+    log(ph, f"memory model {mm['total_bytes'] / 1e9:.2f} GB at K {K} "
+        f"(in-scan join and BBH {mm['join_temp_bytes'] / 1e9:.2f} GB) holds "
+        f"the {allocated / 1e9:.2f} GB allocated; {top / 1e9:.2f} GB at the "
+        f"largest cap")
+
+
 def run(name, outdir, capture=None, golden=None, tag="", dataset=None,
         **config):
-    """One run_pipeline with backend "cuda" on the card; its .net and
-    .clus must be byte-identical to ``golden`` (a path prefix; default
-    the preset's ``bench_cache`` files; ``False``: no golden)."""
+    """One run_pipeline on the card (backend "cuda" unless ``config``
+    names another); its .net and .clus must be byte-identical to
+    ``golden`` (a path prefix; default the preset's ``bench_cache``
+    files; ``False``: no golden)."""
     from pandelos_tpu_torch.config import PipelineConfig
     from pandelos_tpu_torch.pipeline import run_pipeline
 
@@ -446,7 +469,7 @@ def run(name, outdir, capture=None, golden=None, tag="", dataset=None,
     t = time.monotonic()
     res = run_pipeline(
         os.path.join(CACHE, name + ".faa"), prefix,
-        PipelineConfig(backend="cuda", device="cuda", **config),
+        PipelineConfig(**{"backend": "cuda", "device": "cuda", **config}),
         dataset=dataset, capture=capture,
     )
     wall = time.monotonic() - t
@@ -768,6 +791,49 @@ def main() -> int:
             f"posting walk; walls {wall:.2f}s, {wall2:.2f}s")
         del idx, res2
         torch.cuda.empty_cache()
+
+        # 11-13. the JAX package's kernel-free backends: the xla backend
+        # with device BBH (what a plain JAX `run` takes), its cells path,
+        # and the dense backend; none may launch a join kernel
+        for ph, tag, cfg in ((11, "_xla", dict(backend="xla")),
+                             (12, "_xla_cells", dict(backend="xla",
+                                                     device_bbh=False)),
+                             (13, "_dense", dict(backend="dense"))):
+            cap = {}
+            # an index and its cached runner hold each other: collect the
+            # earlier runs' before the peak is reset
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_launches()
+            res, wall, _ = run(MAIN, outdir, capture=cap, tag=tag, **cfg)
+            n = launches()
+            if any(n.values()):
+                raise AssertionError(f"{tag}: join kernels launched {n}")
+            got = check_targets(MAIN, res)
+            net = res.stats["network"]
+            peak = torch.cuda.max_memory_allocated(dev)
+            log(ph, f"{MAIN} {cfg}: .net/.clus byte-identical to golden; "
+                f"{got}; launches {n}; wall {wall:.2f}s; peak device memory "
+                f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before the "
+                f"run)")
+            log(ph, "phase_times " + json.dumps(
+                {k: round(v, 4) for k, v in res.phase_times.items()}))
+            if "phase_s" in net:
+                log(ph, "device phases " + json.dumps(net["phase_s"])
+                    + f"; K {net['candidate_cap_final']}, joined pairs "
+                    f"{net['n_joined_pairs']}")
+                check_memory_model(ph, cap["runner"].index, cfg,
+                                   net["candidate_cap_final"], peak - held,
+                                   dev)
+            if "dense_pass_s" in cap:
+                log(ph, f"dense pass wall {cap['dense_pass_s']:.4f}s (host "
+                    f"clock: padding, upload, matmuls, compaction, fetch; "
+                    f"{cap['dense_matmul_flops']:.4e} matmul flop), host "
+                    f"corrections {cap['host_corrections_s']:.4f}s")
+            del cap, res
+            torch.cuda.empty_cache()
 
         # 7. the four smaller presets
         for name in PRESETS:

@@ -1,11 +1,14 @@
 """Command-line interface of the PyTorch/CUDA engine.
 
     python -m pandelos_tpu_torch.cli run input.faa out_prefix \
-        [--device cuda|cpu] [--backend cuda|oracle] [--k K]
+        [--device cuda|cpu] [--backend cuda|auto|xla|dense|pallas|oracle]
+        [--k K] [--level-cap N]
     python -m pandelos_tpu_torch.cli check first.net second.net
 
 ``run`` writes ``out_prefix.net``, ``.clus`` and ``.stats.json`` and runs
-on the card unless ``--device cpu`` is given.  ``check`` compares two
+on the card unless ``--device cpu`` is given.  ``--backend`` takes the
+JAX package's names (``auto`` is ``xla``, ``pallas`` is ``cuda``);
+``reference`` is not ported and exits with its ROADMAP item.  ``check`` compares two
 ``.net`` files (exit 1 when they differ).
 """
 
@@ -28,11 +31,13 @@ def main(argv=None) -> int:
     p_run.add_argument("--k", type=int, default=None,
                        help="k-mer length override")
     p_run.add_argument("--backend", default="cuda",
-                       choices=["cuda", "oracle"])
+                       choices=["cuda", "auto", "oracle", "dense", "xla",
+                                "pallas", "reference"])
     p_run.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p_run.add_argument("--row-block", type=int, default=None)
     p_run.add_argument("--col-block", type=int, default=None)
     p_run.add_argument("--candidate-cap", type=int, default=None)
+    p_run.add_argument("--level-cap", type=int, default=None)
 
     p_ck = sub.add_parser("check", help="differential .net comparison")
     p_ck.add_argument("first")
@@ -62,6 +67,8 @@ def _dispatch(args) -> int:
             cfg.col_block = args.col_block
         if args.candidate_cap:
             cfg.candidate_cap = args.candidate_cap
+        if args.level_cap:
+            cfg.level_cap = args.level_cap
         res = run_pipeline(args.input, args.out_prefix, cfg)
         stats = dict(res.stats)
         if "genome_pairs" in stats.get("network", {}):

@@ -7,11 +7,20 @@ commons-cli in ``Cli.java:11-57``, structopt in
 covers all of it.
 
 The fields are those of the JAX package's ``PipelineConfig`` that this
-package reads (its dense-backend and mesh fields are left out), plus
-``device``.  This package runs the ``"cuda"``
-engine (the candidate engine with its three exact joins, and the BBH
-network on the device or on the host) and the ``"oracle"`` host path;
-options of paths that are not ported yet raise :class:`NotPortedError`
+package reads (its mesh fields are left out), plus ``device``.  Backends
+(:func:`resolve_backend` maps the JAX package's names):
+
+- ``"cuda"`` (default; the JAX ``"pallas"``): the candidate engine with
+  its three hand-written exact joins, the BBH network on the device or
+  on the host;
+- ``"xla"`` (what ``"auto"`` means, as in the JAX package): the same
+  candidate engine with the in-scan join (array code, no join kernel),
+  the BBH network on the device over its [rows, K] outputs or on the
+  host;
+- ``"dense"``: the blocked-matmul scorer (``ops/score.py``), host BBH;
+- ``"oracle"``: the host posting walk.
+
+Options of paths that are not ported yet raise :class:`NotPortedError`
 from :func:`check_ported`, naming the ROADMAP queue item that ports them.
 """
 
@@ -32,25 +41,39 @@ class PipelineConfig:
     k: Optional[int] = None  # None -> derive via entropy formula
 
     # --- scoring backend
-    backend: str = "cuda"  # "cuda" | "oracle"
-    # torch device of the "cuda" engine: "cuda" (default; raises when no
-    # card is present) or "cpu" (the tests' route through the kernels'
-    # plain versions)
+    # "cuda" | "xla" | "dense" | "oracle", and the JAX names "pallas"
+    # (= "cuda") and "auto" (= "xla")
+    backend: str = "cuda"
+    # torch device of the device backends: "cuda" (default; raises when
+    # no card is present) or "cpu" (the tests' route through the
+    # kernels' plain versions)
     device: str = "cuda"
-    # Row-block height of the candidate extraction (the reference analogue
-    # is the 2048-wide column stepping at library.cpp:453-458).
+    # Row-block height of the candidate extraction and the dense pass (the
+    # reference analogue is the 2048-wide column stepping at
+    # library.cpp:453-458).
     row_block: int = 256
     # Column-block width; with row_block it sets the padded gene count.
     col_block: int = 2048
+    # --- dense backend (ops/score.py)
+    # Count-level cap of the min-sum level decomposition; per-(gene, kmer)
+    # counts above it get exact host corrections.
+    level_cap: int = 4
+    # Operand dtype of the dense matmuls: "bf16" (f32 results) or "f32".
+    matmul_dtype: str = "bf16"
+    # Cells extracted per row block = nnz_cap_per_row * row_block; a
+    # block past it is rerun with its exact count.
+    nnz_cap_per_row: int = 512
     # --- candidate engine (ops/candidate.py)
     # Max candidate columns per row on device; the BBH path doubles it
     # until no row overflows (up to 1024).
     candidate_cap: int = 128
-    # Run the BBH network construction on device (None and True: on;
-    # False: the cells path, compute_cells_candidate + host BBH, which
-    # also takes over when a row's candidates pass MAX_CANDIDATE_CAP).
+    # Run the BBH network construction on device for the "cuda" and
+    # "xla" backends (None and True: on; False: the cells path,
+    # compute_cells_candidate + host BBH, which also takes over when a
+    # row's candidates pass MAX_CANDIDATE_CAP).
     device_bbh: Optional[bool] = None
-    # Exact-join kernel, each a hand-written CUDA kernel: "lane2" (packed
+    # Exact-join kernel of the "cuda" backend, each a hand-written CUDA
+    # kernel: "lane2" (packed
     # lane table; falls back to "lane" when a k-mer count >= 256 or the
     # vocabulary >= 2^23), "lane" (unpacked lane table) or "roll" (the
     # sorted join over the padded profiles).
@@ -87,30 +110,35 @@ class PipelineConfig:
 
 JOIN_KERNELS = ("lane2", "lane", "roll")
 
-# backends of the JAX package and the ROADMAP item that ports each
+BACKENDS = ("cuda", "xla", "dense", "oracle", "pallas", "auto")
+# the JAX package's backend names that name a backend of this package
+_ALIASES = {"pallas": "cuda", "auto": "xla"}
+
+# backends of the JAX package not ported yet, and the ROADMAP item of each
 _BACKEND_QUEUE = {
-    "xla": "ROADMAP Queue 1 item 8 (the xla backend's in-scan join)",
-    "dense": "ROADMAP Queue 1 item 8 (the dense backend)",
-    "pallas": "ROADMAP Queue 1 item 8 (the JAX package's backend names); "
-    "its pallas route is this package's backend 'cuda', device_bbh=False "
-    "its cells path",
-    "auto": "in the JAX package 'auto' is the xla backend, ROADMAP Queue 1 "
-    "item 8; the engine of this package is backend 'cuda'",
     "reference": "ROADMAP Queue 4 item 1 (the reference transcription "
-    "backend)",
+    "backend; its clustering twin needs networkx)",
 }
+
+
+def resolve_backend(backend: str) -> str:
+    """The backend a run takes: the JAX package's ``"auto"`` is ``"xla"``
+    (as in its ``pipeline._resolve_backend``) and its ``"pallas"`` is this
+    package's ``"cuda"`` engine."""
+    return _ALIASES.get(backend, backend)
 
 
 def check_ported(config: PipelineConfig) -> None:
     """Raise :class:`NotPortedError` for any option whose path is not
     ported yet; never run another path in its place."""
-    b = config.backend
-    if b in _BACKEND_QUEUE:
+    if config.backend in _BACKEND_QUEUE:
         raise NotPortedError(
-            f"backend {b!r} is not ported: {_BACKEND_QUEUE[b]}"
+            f"backend {config.backend!r} is not ported: "
+            f"{_BACKEND_QUEUE[config.backend]}"
         )
-    if b not in ("cuda", "oracle"):
-        raise ValueError(f"unknown backend: {b}")
+    if config.backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {config.backend}")
+    b = resolve_backend(config.backend)
     if config.profile_dir:
         raise NotPortedError(
             "profile_dir is not ported: ROADMAP Queue 4 item 2 (a "
@@ -132,3 +160,5 @@ def check_ported(config: PipelineConfig) -> None:
             f"unknown join_kernel {config.join_kernel!r}: one of "
             f"{JOIN_KERNELS}"
         )
+    if config.matmul_dtype not in ("bf16", "f32"):
+        raise ValueError(f"unknown matmul_dtype: {config.matmul_dtype}")

@@ -39,3 +39,12 @@ def configure_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an f32 result, exact for integer sums below 2^24: bf16
+    operands keep an f32 output on the card; f32 operands, and the CPU
+    (whose matmul has no bf16 -> f32 form), multiply in f32."""
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))

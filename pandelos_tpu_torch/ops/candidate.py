@@ -19,10 +19,15 @@ for the passes that ``compute_network_device`` and
 3. **Extraction** (``_candidate_blocks``): the first K candidate columns
    of every row in ascending column order, and each row's candidate
    count (rows with count > K are rerun at a larger K by the caller).
-4. **Flatten + join + validity** (``Runner.flatten_join``): the per-row
-   lists become one flat pair list; the selected CUDA join kernel
-   (``Runner.join_kernel``: lane2, lane or roll) joins every pair
-   exactly; the reference's validity test is applied.
+4. **Flatten + join + validity** (``Runner.flatten_join``, backend
+   ``"cuda"``): the per-row lists become one flat pair list; the selected
+   CUDA join kernel (``Runner.join_kernel``: lane2, lane or roll) joins
+   every pair exactly; the reference's validity test is applied.
+4'. **In-scan join** (``_join_slots``, backend ``"xla"``): the exact
+   counters and validity of every (row, candidate slot) of the
+   extraction, [rows, K] like the JAX package's ``do_join=True`` scan,
+   by a sorted search of each row's ids in each candidate's profile.
+   Array code, no join kernel, as in the JAX package.
 
 Every summand of the bound matmuls is an integer (a bf16 round-up of an
 integer is an integer) and every partial sum is < 2^24, so any f32
@@ -40,11 +45,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pandelos_tpu_torch.config import PipelineConfig
-from pandelos_tpu_torch.device import configure_numerics, resolve_device
+from pandelos_tpu_torch.config import PipelineConfig, resolve_backend
+from pandelos_tpu_torch.device import (
+    configure_numerics,
+    mm_f32,
+    resolve_device,
+)
 from pandelos_tpu_torch.index import KmerIndex
 from pandelos_tpu_torch.oracle.cells import ScoreCells, cells_of_rows
-from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
+from pandelos_tpu_torch.ops.score import (
+    _round_up,
+    _width_buckets,
+    pad_profiles,
+)
 
 _PAIR_BLOCK = 128  # smallest pair capacity (the TPU kernel's pair block)
 # int8 bound-bit matrix byte cap; past this, extraction takes the
@@ -66,15 +79,6 @@ def _bf16_round_up(x: np.ndarray) -> np.ndarray:
     lost = (bits & np.uint32(0x0000FFFF)) != 0
     bumped = trunc + np.where(lost, np.uint32(0x00010000), np.uint32(0))
     return bumped.view(np.float32).copy()
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with an f32 result, exact for this module's integer sums: bf16
-    operands with an f32 output on the card, f32 operands on the CPU
-    (whose matmul has no bf16 -> f32 form)."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
 def build_signatures(index: KmerIndex, padded, ids_d, counts_d):
@@ -134,7 +138,7 @@ def _bound_bits_blocks(sig, col_lens, perm_pos, k2: int,
     pres_t = pres_perm.t()
     for r0 in range(0, n_pos, row_block):
         r1 = min(n_pos, r0 + row_block)
-        bnd = _mm_f32(sig_perm[r0:r1], pres_t)  # [rows, n_pos] exact f32
+        bnd = mm_f32(sig_perm[r0:r1], pres_t)  # [rows, n_pos] exact f32
         T[r0:r1] = (float(k2) * bnd >= lens_perm[r0:r1, None]).to(torch.int8)
     return T | T.t()
 
@@ -190,8 +194,8 @@ def _candidate_blocks(
         if from_T:
             bound = sig_or_T[pos[r0:r1]] > 0  # [rows, GP]
         else:
-            perc_bnd = _mm_f32(sig_bf[g], sig_pres.t())
-            tr_bnd = _mm_f32(sig_pres[g], sig_bf.t())
+            perc_bnd = mm_f32(sig_bf[g], sig_pres.t())
+            tr_bnd = mm_f32(sig_pres[g], sig_bf.t())
             bound = (float(k2) * perc_bnd >= row_lens[:, None]) | (
                 float(k2) * tr_bnd >= col_lens[None, :]
             )
@@ -222,6 +226,95 @@ def _candidate_blocks(
         cand.reshape(n_blocks, R, K),
         counts.reshape(n_blocks, R),
     )
+
+
+# bytes that _join_slots allocates, every temporary summed (a bound of
+# its peak): per entry of a chunk's searched rows (ids, counts, search
+# positions, matches, gathered counts; a pair's indices and sums spread
+# over its >= 128 entries), and per [rows, K] slot (the long candidate
+# ids, the counters, the slot list, the validity test)
+_JOIN_ENTRY_BYTES = 40
+_JOIN_SLOT_BYTES = 48
+# the rest of the xla backend's [rows, K] work per slot, every temporary
+# summed: the extraction's candidate lists and the device BBH over them
+_BBH_SLOT_BYTES = 256
+# candidate caps past this go to the host cells path
+# (compute_cells_candidate + host BBH); compute_network_device doubles
+# its cap up to it
+MAX_CANDIDATE_CAP = 1024
+
+
+def join_slots_bytes(n_slots: int, W: int,
+                     n_pairs: Optional[int] = None) -> int:
+    """What :func:`_join_slots` allocates over ``n_slots`` [rows, K]
+    slots of width-``W`` profiles, of which ``n_pairs`` (at most all)
+    are searched."""
+    n_pairs = n_slots if n_pairs is None else n_pairs
+    return (_JOIN_ENTRY_BYTES * min(join_chunk(W), n_pairs) * W
+            + _JOIN_SLOT_BYTES * n_slots)
+
+
+def join_chunk(W: int) -> int:
+    """(row, slot) pairs that :func:`_join_slots` searches at once: about
+    2^25 b-row entries of width ``W``."""
+    return max(1, (1 << 25) // W)
+
+
+def _join_slots(all_ids, all_counts, col_lens, grow, cand, counts,
+                w_row: int, k2: int, pair_chunk: Optional[int] = None):
+    """The JAX package's in-scan join: for every (row, candidate slot)
+    of an extraction, the exact (inter, perc, tr) of the row's first
+    ``w_row`` profile slots against the candidate's whole profile, and
+    the validity, each [n_blocks, R, K] like ``grow``/``cand``.
+
+    The JAX body compares every pair of slots; here each a id is looked
+    up in the b row by a sorted search (profiles are id-sorted and
+    left-packed, with the sentinel ``vocab_size`` above every real id),
+    which names the same matches: inter sums min(ca, cb), perc ca and tr
+    cb over them.  Padding slots match padding slots with count 0 and
+    add nothing.  Slots past a row's count (``have`` false) stay 0 and
+    invalid, as the JAX package's (they join the empty gene there).
+    Every counter is an integer below 2^24: exact in f32 in any order.
+
+    ``pair_chunk`` bounds the (row, slot) pairs searched at once (by
+    default :func:`join_chunk`); :func:`join_slots_bytes` counts what the
+    join allocates."""
+    dev = cand.device
+    K = cand.shape[-1]
+    W = all_ids.shape[1]
+    G_pad = all_ids.shape[0]
+    gf = grow.reshape(-1).long()
+    cf = cand.reshape(-1, K).long()
+    nf = counts.reshape(-1)
+    have = torch.arange(K, device=dev)[None, :] < nf[:, None]
+    inter = torch.zeros(cf.shape, dtype=torch.float32, device=dev)
+    perc = torch.zeros_like(inter)
+    tr = torch.zeros_like(inter)
+    rr, ss = have.nonzero(as_tuple=True)
+    step = pair_chunk or join_chunk(W)
+    for p0 in range(0, rr.shape[0], step):
+        r, sl = rr[p0: p0 + step], ss[p0: p0 + step]
+        a, b = gf[r], cf[r, sl]
+        a_ids = all_ids[a, :w_row]
+        b_ids = all_ids[b]
+        pos = torch.searchsorted(b_ids, a_ids).clamp_(max=W - 1)
+        miss = torch.gather(b_ids, 1, pos) != a_ids
+        del a_ids, b_ids
+        a_cnt = all_counts[a, :w_row].masked_fill_(miss, 0)
+        b_cnt = torch.gather(all_counts[b], 1, pos).masked_fill_(miss, 0)
+        inter[r, sl] = torch.minimum(a_cnt, b_cnt).sum(1).to(torch.float32)
+        perc[r, sl] = a_cnt.sum(1).to(torch.float32)
+        tr[r, sl] = b_cnt.sum(1).to(torch.float32)
+    # validity: the JAX package's f32 form of the 1/(2k) threshold
+    row_lens = col_lens[torch.clamp(gf, max=G_pad - 1)]
+    cand_lens = col_lens[torch.clamp(cf, max=G_pad - 1)]
+    valid = (inter > 0) & have & (
+        (float(k2) * perc >= row_lens[:, None])
+        | (float(k2) * tr >= cand_lens)
+    )
+    shape = cand.shape
+    return (inter.reshape(shape), perc.reshape(shape), tr.reshape(shape),
+            valid.reshape(shape))
 
 
 def packable(index: KmerIndex) -> bool:
@@ -368,21 +461,32 @@ class Runner:
         return t_mode_enabled(self.n_dev, 1, starts_len * row_block)
 
     def extract(
-        self, perm_ext, starts, row_block, cand_cap, upper_only=False,
-        from_T=False,
+        self, perm_ext, starts, row_block, w_row, cand_cap, do_join=True,
+        upper_only=False, from_T=False,
     ):
-        """One extraction pass: (grow, cand, counts) device tensors with a
-        leading block axis (the JAX ``extract`` with ``do_join=False``;
-        its in-scan join is ROADMAP Queue 1 item 8)."""
+        """One extraction pass, as the JAX ``MeshRunner.extract`` on one
+        device: device tensors with a leading block axis, (grow, cand,
+        counts) with ``do_join=False``, and (grow, cand, inter, perc, tr,
+        valid, counts) with the in-scan join of each row's first
+        ``w_row`` profile slots (:func:`_join_slots`)."""
         perm_d = self._put(np.asarray(perm_ext, np.int32))
         starts_d = self._put(np.asarray(starts, np.int64))
         src = self.bound_bits(perm_ext, starts, row_block) if from_T else (
             self.sig
         )
-        return _candidate_blocks(
+        grow, cand, counts = _candidate_blocks(
             src, self.col_lens, perm_d, starts_d, row_block, cand_cap,
             self.G, self.k2, upper_only=upper_only, from_T=from_T,
         )
+        if not do_join:
+            return grow, cand, counts
+        joined = _join_slots(self.all_ids, self.all_counts, self.col_lens,
+                             grow, cand, counts, w_row, self.k2)
+        return (grow, cand) + joined + (counts,)
+
+    def extract_fetched(self, *args, **kwargs):
+        """extract() with every output on the host as NumPy."""
+        return [x.cpu().numpy() for x in self.extract(*args, **kwargs)]
 
     def grow_layout(self, perm_ext, starts, row_block: int) -> np.ndarray:
         """Host twin of extract()'s ``grow``: the permutation sliced at
@@ -508,6 +612,7 @@ def work_model(
 def memory_model(
     index: KmerIndex, config: Optional[PipelineConfig] = None,
     budget_bytes: Optional[float] = None, device=None,
+    cand_cap: Optional[int] = None,
 ) -> dict:
     """Device-memory accounting of the single-device engine against the
     card's memory (``torch.cuda.get_device_properties(dev).total_memory``
@@ -515,7 +620,12 @@ def memory_model(
     copy in bf16, the padded profiles, the table of the join kernel the
     run takes (packed lane2 [G_pad, D*128], unpacked lane [G_pad,
     2*D*128] or pair [G_pad, 2W], each its own allocation), the bound-bit
-    matrix and its transpose, and the extraction workspace."""
+    matrix and its transpose, and the extraction workspace.  Backend
+    ``"xla"`` builds no join table and no bound bits; it counts instead
+    what its [rows, K] work allocates (:func:`join_slots_bytes` and the
+    device BBH's ``_BBH_SLOT_BYTES``) at ``cand_cap``: by default the
+    largest cap the run can reach, ``MAX_CANDIDATE_CAP`` with device BBH
+    and ``config.candidate_cap`` without."""
     config = config or PipelineConfig()
     if budget_bytes is None:
         budget_bytes = float(
@@ -532,20 +642,34 @@ def memory_model(
     B = wm["signature_buckets"]
     from pandelos_tpu_torch.ops.lane_join import lane_depth
 
-    kernel = join_kernel_for(index, config)
+    in_scan = resolve_backend(config.backend) == "xla"
+    kernel = None if in_scan else join_kernel_for(index, config)
     R = min(config.row_block, _round_up(G, 8))
     rows = -(-G // R) * R
     sig = 2 * 2 * G_pad * B  # bf16 masses + the permuted copy
     pres = 2 * rows * B  # bf16 presence of the permuted copy
     profiles = 2 * 4 * G_pad * W  # ids + counts
     join_table = {
+        None: 0,
         "lane2": 4 * G_pad * lane_depth(index) * 128,
         "lane": 8 * G_pad * lane_depth(index) * 128,
         "roll": 8 * G_pad * W,
     }[kernel]
-    t_bytes = 2 * rows * rows if t_mode_enabled(1, 1, rows) else 0
+    join_temps = 0
+    if in_scan:
+        if cand_cap is None:
+            cand_cap = config.candidate_cap if config.device_bbh is False \
+                else max(config.candidate_cap, MAX_CANDIDATE_CAP)
+        n_slots = rows * cand_cap
+        join_temps = (join_slots_bytes(n_slots, W)
+                      + _BBH_SLOT_BYTES * n_slots)
+    t_bytes = (
+        2 * rows * rows
+        if not in_scan and t_mode_enabled(1, 1, rows) else 0
+    )
     workspace = 4 * _T_ROWS * rows + 3 * _MASK_ELEMS + 6 * 4 * (1 << 21)
-    total = sig + pres + profiles + join_table + t_bytes + workspace
+    total = (sig + pres + profiles + join_table + join_temps + t_bytes
+             + workspace)
     return {
         **wm,
         "budget_bytes": budget_bytes,
@@ -553,6 +677,7 @@ def memory_model(
         "sig_bytes": int(sig + pres),
         "profile_bytes": int(profiles),
         "join_table_bytes": int(join_table),
+        "join_temp_bytes": int(join_temps),
         "bound_bits_bytes": int(t_bytes),
         "workspace_bytes": int(workspace),
         "total_bytes": int(total),
@@ -577,7 +702,8 @@ def check_hbm_fit(index: KmerIndex, config, device) -> None:
         f"(card {mm['budget_bytes']/1e9:.1f}GB): signatures "
         f"{mm['sig_bytes']/1e9:.1f}GB + profiles "
         f"{mm['profile_bytes']/1e9:.1f}GB + {mm['join_kernel']} join table "
-        f"{mm['join_table_bytes']/1e9:.1f}GB + bound bits "
+        f"{mm['join_table_bytes']/1e9:.1f}GB + in-scan join "
+        f"{mm['join_temp_bytes']/1e9:.1f}GB + bound bits "
         f"{mm['bound_bits_bytes']/1e9:.1f}GB; shard the input by genome "
         f"subsets or wait for the multi-GPU path (ROADMAP Queue 1 item 9); "
         f"PANDELOS_IGNORE_HBM_MODEL=1 overrides"
@@ -623,29 +749,53 @@ def _valid_pairs(runner: Runner, grow, cand, counts, K: int, capture=None):
     return [x[keep].cpu().numpy() for x in out[:5]]
 
 
+def _valid_slots(grow, cand, inter, perc, tr, valid, rows_ok=None):
+    """The valid (row, candidate) cells of an in-scan join's [.., K]
+    host outputs, as (i, j, inter, perc, tr); ``rows_ok`` masks rows."""
+    K = cand.shape[-1]
+    grow = grow.reshape(-1)
+    vmask = valid.reshape(-1, K)
+    if rows_ok is not None:
+        vmask = vmask & rows_ok[:, None]
+    rr = np.broadcast_to(grow[:, None], vmask.shape)[vmask]
+    return (
+        rr.astype(np.int32),
+        cand.reshape(-1, K)[vmask].astype(np.int32),
+        inter.reshape(-1, K)[vmask].astype(np.int64),
+        perc.reshape(-1, K)[vmask].astype(np.int64),
+        tr.reshape(-1, K)[vmask].astype(np.int64),
+    )
+
+
 def compute_cells_candidate(
     index: KmerIndex, config: Optional[PipelineConfig] = None, device=None,
     capture: Optional[dict] = None,
 ) -> ScoreCells:
     """Every VALID cell (both orientations) through the candidate engine
     on one device: the counterpart of the JAX package's
-    ``compute_cells_candidate`` with backend ``"pallas"``.
+    ``compute_cells_candidate``.
 
-    One extraction pass (upper triangle only: each unordered pair once,
-    in its lower-id row's list) feeds the flatten + join + validity step
-    with ``config.join_kernel``; the host mirrors the valid cells.  Rows
-    whose candidates overflow ``config.candidate_cap`` are rerun on the
-    device with a cap of their count rounded up to 128 when that is at
-    most 4096, else walked exactly on the host
-    (:func:`_host_fallback_rows`, whose invalid cells the finalization
-    drops).  The JAX package's device retry joins inside its extraction
-    scan (the xla backend's in-scan join, ROADMAP Queue 1 item 8); here
-    the retry extracts without joining and runs the same flatten + join
-    through the selected kernel.  The counters are exact integers either
-    way, so the cells are equal as a set.
+    Backend ``"cuda"`` (the JAX ``"pallas"``): one extraction pass (upper
+    triangle only: each unordered pair once, in its lower-id row's list)
+    feeds the flatten + join + validity step with ``config.join_kernel``;
+    the host mirrors the valid cells.  Rows whose candidates overflow
+    ``config.candidate_cap`` are rerun on the device with a cap of their
+    count rounded up to 128 when that is at most 4096, else walked
+    exactly on the host (:func:`_host_fallback_rows`, whose invalid cells
+    the finalization drops).
+
+    Backend ``"xla"``: one extraction per profile-width bucket
+    (``score._width_buckets``), both orientations, each with the in-scan
+    join of the rows' first ``w_bucket`` slots; no mirroring; past 4096
+    the host walk's cells are kept as they come.
+
+    Either backend's device retry reruns the overflowing rows with the
+    in-scan join (:func:`_join_slots`) at the whole width, upper triangle
+    and mirrored for ``"cuda"``, as the JAX package's retry does.
 
     ``capture``, when given, receives the runner and the main pass's
-    join inputs and outputs (see ``compute_network_device``)."""
+    join inputs and outputs (see ``compute_network_device``; backend
+    ``"cuda"`` only)."""
     config = config or PipelineConfig()
     dev = resolve_device(device if device is not None else config.device)
     configure_numerics()
@@ -655,6 +805,7 @@ def compute_cells_candidate(
         z64 = np.zeros(0, dtype=np.int64)
         return ScoreCells(z32, z32, z64, z64, z64)
 
+    use_kernel = resolve_backend(config.backend) == "cuda"
     check_hbm_fit(index, config, dev)
     row_block = min(config.row_block, _round_up(G, 8))
     col_block = min(config.col_block, _round_up(G, 128))
@@ -667,28 +818,54 @@ def compute_cells_candidate(
     runner.set_sig(sig_mass)
 
     widths = np.diff(index.profile_ptr)
-    perm = np.argsort(widths, kind="stable").astype(np.int32)
-    n_blocks = -(-G // row_block)
-    perm_pad = np.full(n_blocks * row_block, G, dtype=np.int32)
-    perm_pad[:G] = perm
-    perm_ext = np.concatenate([perm_pad, np.full(row_block, G, np.int32)])
-    starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
-    use_T = runner.use_bound_bits(len(starts), row_block)
-    grow_d, cand_d, counts_d = runner.extract(
-        perm_ext, starts, row_block, K, upper_only=True, from_T=use_T,
-    )
-    if capture is not None:
-        capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
-                       row_block=row_block, use_T=use_T)
-    counts_h = counts_d.reshape(-1).cpu().numpy()
-    grow_h = runner.grow_layout(perm_ext, starts, row_block).reshape(-1)
-    over = (counts_h > K) & (grow_h < G)
-    parts = [_mirrored(*_valid_pairs(runner, grow_d, cand_d, counts_d, K,
-                                     capture))]
+    parts = []
+    overflow = {}  # row -> its candidate count
 
-    if over.any():
-        rows = np.sort(grow_h[over]).astype(np.int32)
-        K2 = _round_up(int(counts_h[over].max()), 128)
+    if use_kernel:
+        perm = np.argsort(widths, kind="stable").astype(np.int32)
+        n_blocks = -(-G // row_block)
+        perm_pad = np.full(n_blocks * row_block, G, dtype=np.int32)
+        perm_pad[:G] = perm
+        perm_ext = np.concatenate(
+            [perm_pad, np.full(row_block, G, np.int32)])
+        starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
+        use_T = runner.use_bound_bits(len(starts), row_block)
+        grow_d, cand_d, counts_d = runner.extract(
+            perm_ext, starts, row_block, padded.width, K, do_join=False,
+            upper_only=True, from_T=use_T,
+        )
+        if capture is not None:
+            capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
+                           row_block=row_block, use_T=use_T)
+        counts_h = counts_d.reshape(-1).cpu().numpy()
+        grow_h = runner.grow_layout(perm_ext, starts, row_block).reshape(-1)
+        over = (counts_h > K) & (grow_h < G)
+        overflow.update(zip(grow_h[over].tolist(), counts_h[over].tolist()))
+        parts.append(_mirrored(*_valid_pairs(runner, grow_d, cand_d,
+                                             counts_d, K, capture)))
+    else:
+        for w_row, perm_pad, starts in _width_buckets(
+            widths, row_block, padded.width
+        ):
+            perm_ext = np.concatenate(
+                [perm_pad, np.full(row_block, G, dtype=np.int32)])
+            grow, cand, inter, perc, tr, valid, counts = (
+                runner.extract_fetched(
+                    perm_ext, starts, row_block, w_row, K, do_join=True,
+                    upper_only=False,
+                )
+            )
+            grow = grow.reshape(-1)
+            counts = counts.reshape(-1)
+            over = (counts > K) & (grow < G)
+            for r, c in zip(grow[over].tolist(), counts[over].tolist()):
+                overflow[r] = max(overflow.get(r, 0), c)
+            parts.append(_valid_slots(grow, cand, inter, perc, tr, valid,
+                                      rows_ok=~over))
+
+    if overflow:
+        rows = np.asarray(sorted(overflow), dtype=np.int32)
+        K2 = _round_up(max(overflow.values()), 128)
         if K2 <= MAX_RETRY_CAP:
             pad = (-len(rows)) % row_block
             perm2 = np.concatenate(
@@ -697,16 +874,23 @@ def compute_cells_candidate(
             starts2 = np.arange(
                 0, len(perm2) - row_block, row_block, dtype=np.int32
             )
-            out = runner.extract(perm2, starts2, row_block, K2,
-                                 upper_only=True)
-            parts.append(_mirrored(*_valid_pairs(runner, *out, K2)))
+            grow, cand, inter, perc, tr, valid, _ = runner.extract_fetched(
+                perm2, starts2, row_block, padded.width, K2, do_join=True,
+                upper_only=use_kernel,
+            )
+            cells = _valid_slots(grow, cand, inter, perc, tr, valid)
+            parts.append(_mirrored(*cells) if use_kernel else cells)
         else:
-            # upper-triangle discipline: keep col > row and mirror, so
-            # partner rows' mirrored cells are not duplicated
             fb = _host_fallback_rows(index, rows)
-            keep = fb.col > fb.row
-            parts.append(_mirrored(
-                fb.row[keep], fb.col[keep], fb.intersection[keep],
-                fb.perc_cnt[keep], fb.tr_perc_cnt[keep],
-            ))
+            if use_kernel:
+                # upper-triangle discipline: keep col > row and mirror, so
+                # partner rows' mirrored cells are not duplicated
+                keep = fb.col > fb.row
+                parts.append(_mirrored(
+                    fb.row[keep], fb.col[keep], fb.intersection[keep],
+                    fb.perc_cnt[keep], fb.tr_perc_cnt[keep],
+                ))
+            else:
+                parts.append((fb.row, fb.col, fb.intersection, fb.perc_cnt,
+                              fb.tr_perc_cnt))
     return ScoreCells(*(np.concatenate(x) for x in zip(*parts)))

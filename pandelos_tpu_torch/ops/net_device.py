@@ -2,10 +2,12 @@
 
 The counterpart of the JAX package's ``ops/net_device.py`` on one device
 (no mesh, no ring): the candidate engine extracts every row's candidate
-list, the selected exact join (lane2, lane or roll) computes the exact
-counters of every flat pair, and
-the reference's BBH + paralog filters (``Pangenes.java:98-176``) run on
-the device, so that only the accepted cells come back to the host.
+list; the exact counters come from the selected join kernel over the
+flat pair list (backend ``"cuda"``: lane2, lane or roll;
+:func:`_bbh_flat_local`) or from the in-scan join's [rows, K] outputs
+(backend ``"xla"``: array code; :func:`_bbh_local`); the reference's BBH
++ paralog filters (``Pangenes.java:98-176``) run on the device, so that
+only the accepted cells come back to the host.
 
 Float semantics: scores are compared on the device for exact equality
 (score == per-(row, genome) maxima), so every quotient must be the
@@ -28,11 +30,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pandelos_tpu_torch.config import PipelineConfig, check_ported
+from pandelos_tpu_torch.config import (
+    PipelineConfig,
+    check_ported,
+    resolve_backend,
+)
 from pandelos_tpu_torch.device import configure_numerics, resolve_device
 from pandelos_tpu_torch.index import KmerIndex
 from pandelos_tpu_torch.io.net import EdgeList
 from pandelos_tpu_torch.ops.candidate import (
+    MAX_CANDIDATE_CAP,
     _next_pow2,
     build_signatures,
     check_hbm_fit,
@@ -40,10 +47,6 @@ from pandelos_tpu_torch.ops.candidate import (
 )
 from pandelos_tpu_torch.ops.exact_div import exact_div_f32
 from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
-
-# candidate caps past this go to the host cells path
-# (compute_cells_candidate + host BBH)
-MAX_CANDIDATE_CAP = 1024
 
 
 def _no_stats() -> bool:
@@ -118,15 +121,125 @@ def _ims_and_aggregates(lt1_score, acc_cell, score, ap, atp, g_i, g_j,
     )
 
 
+def _emit(emask, accept, gf, cf, e_inter_of, edge_cap: int):
+    """The emitted cells of ``emask`` [P, K] in row-major order, padded
+    to ``edge_cap`` (doubled past the emitted count, as the JAX retry
+    loop does) with row -1: (e_row, e_col, e_inter, e_acc, n_edges,
+    edge_cap).  ``e_inter_of`` maps the flat [P * K] positions to the
+    cells' intersections."""
+    dev = emask.device
+    K = cf.shape[1]
+    (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
+    n_edges = int(eidx.shape[0])
+    while n_edges > edge_cap:
+        edge_cap = _next_pow2(n_edges)
+    fill = torch.full((edge_cap - n_edges,), -1, dtype=eidx.dtype, device=dev)
+    eidx = torch.cat([eidx, fill])
+    safe = torch.clamp(eidx, min=0)
+    found = eidx >= 0
+    e_row = torch.where(found, gf[safe // K], torch.full_like(safe, -1))
+    e_col = cf.reshape(-1)[safe]
+    e_acc = accept.reshape(-1)[safe] & found
+    return e_row, e_col, e_inter_of(safe), e_acc, n_edges, edge_cap
+
+
+def _bbh_core(score, gf, cf, ap, atp, inv_perm, genome_of, n_gen: int,
+              with_stats: bool, valid=None):
+    """The BBH and paralog filters over [P, K] exact scores (0 where the
+    cell is not a valid one with shared k-mers): the per-(row, genome)
+    maxima, the accepted inter-genome cells, the genome-pair matrices and
+    the intra-genome cells (Pangenes.java:98-176).  ``valid``, when
+    given, also gates both tests (the JAX ``_bbh_local`` form).  Returns
+    (accept, intra, acc_cell, (ims, gmin_s, gmin_p, gmax_p))."""
+    G_pad = genome_of.shape[0]
+    zeros_rk = torch.zeros_like(score)
+    g_i = genome_of[torch.clamp(gf, max=G_pad - 1)].long()
+    g_j = genome_of[cf].long()
+    (M,) = _chunked_genome_multi([(score, "max")], g_j, n_gen)
+    jpos = inv_perm[cf].long()
+    M_at_gj = torch.gather(M, 1, g_j)  # M[row, gen(j)]
+    M_j_gi = M[jpos, g_i[:, None].expand_as(jpos)]  # M[j, genome(i)]
+    inter_genome = g_j != g_i[:, None]
+    base = (score > 0) & (score == M_at_gj) & (score == M_j_gi)
+    if valid is not None:
+        base = base & valid
+    accept = base & inter_genome
+    lt1v = torch.where(accept & (score < 1.0), score, zeros_rk)
+    acc_cell = accept & (cf > gf[:, None])
+    mats = _ims_and_aggregates(
+        lt1v, acc_cell, score, ap, atp, g_i, g_j, n_gen, with_stats
+    )
+    thr_cell = mats[0][g_i[:, None].expand_as(g_j), g_j]
+    row_thr = torch.where(
+        accept, thr_cell, torch.full_like(thr_cell, float("inf"))
+    ).amin(1)
+    intra = (
+        base
+        & (~inter_genome)
+        & (gf[:, None] < cf)
+        & (score >= row_thr[:, None])
+    )
+    return accept, intra, acc_cell, mats
+
+
+def _bbh_local(grow, cand, inter, perc, tr, valid, inv_perm, lens,
+               genome_of, n_gen: int, edge_cap: int):
+    """BBH over the in-scan join's [rows, K] outputs (backend ``"xla"``):
+    the JAX ``_bbh_local`` on one device.  Exact scores per (row, slot);
+    candidates come in ascending gene order, so each unordered cell is
+    emitted once from its lower-id row (``cand > grow``).  Returns what
+    :func:`_bbh_flat_local` returns."""
+    K = cand.shape[-1]
+    gf = grow.reshape(-1).long()
+    cf = cand.reshape(-1, K).long()
+    inter_rk = inter.reshape(-1, K)
+    perc_rk = perc.reshape(-1, K)
+    tr_rk = tr.reshape(-1, K)
+    valid_rk = valid.reshape(-1, K)
+    G_pad = lens.shape[0]
+    lenA = lens[torch.clamp(gf, max=G_pad - 1)]  # [P]
+    lenB = lens[cf]  # [P, K]
+    union = lenA[:, None] + lenB - inter_rk
+    one = torch.ones_like(inter_rk)
+    zero = torch.zeros_like(inter_rk)
+    score = exact_div_f32(torch.maximum(inter_rk, one),
+                          torch.maximum(union, one))
+    score = torch.where(valid_rk & (inter_rk > 0), score, zero)
+    with_stats = n_gen <= 128 and not _no_stats()
+    if with_stats:
+        ap = torch.where(perc_rk > 0, exact_div_f32(
+            torch.maximum(perc_rk, one),
+            torch.maximum(lenA[:, None], one)), zero)
+        atp = torch.where(tr_rk > 0, exact_div_f32(
+            torch.maximum(tr_rk, one), torch.maximum(lenB, one)), zero)
+    else:
+        ap = atp = score
+    accept, intra, acc_cell, mats = _bbh_core(
+        score, gf, cf, ap, atp, inv_perm, genome_of, n_gen, with_stats,
+        valid=valid_rk,
+    )
+    emask = (accept | intra) & (cf > gf[:, None])
+    e_row, e_col, e_inter, e_acc, n_edges, edge_cap = _emit(
+        emask, accept, gf, cf, lambda flat: inter_rk.reshape(-1)[flat],
+        edge_cap)
+    counts_out = {
+        "n_edges": n_edges,
+        "n_valid": int((score > 0).sum()),
+        "n_inter": int(acc_cell.sum()),
+        "n_intra": int(intra.sum()),
+    }
+    return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
+
+
 def _bbh_flat_local(grow, cand, counts, pi, pj, fi, fp, ft, fv,
                     inv_perm, lens, genome_of, n_gen: int, edge_cap: int):
-    """Flat-pair BBH on one device: exact scores once per flat pair,
-    re-expanded to the [rows, K] maxima structure by one gather; the
-    emitted cells' counters are read from the flat arrays at their flat
-    positions.  Returns the emitted cells (canonical col > row, padded to
-    ``edge_cap`` with row -1), the cell counts and the genome-pair
-    matrices, and the final ``edge_cap`` (doubled past the emitted
-    count, as the TPU path's retry loop does)."""
+    """Flat-pair BBH on one device (backend ``"cuda"``): exact scores once
+    per flat pair, re-expanded to the [rows, K] maxima structure by one
+    gather; the emitted cells' counters are read from the flat arrays at
+    their flat positions.  Returns the emitted cells (canonical col >
+    row, padded to ``edge_cap`` with row -1), the cell counts and the
+    genome-pair matrices, and the final ``edge_cap`` (doubled past the
+    emitted count, as the TPU path's retry loop does)."""
     dev = fi.device
     K = cand.shape[-1]
     gf = grow.reshape(-1).long()
@@ -153,19 +266,6 @@ def _bbh_flat_local(grow, cand, counts, pi, pj, fi, fp, ft, fv,
     idx = torch.clamp(base[:, None] + sidx, max=n_flat - 1)
     zeros_rk = torch.zeros(cf.shape, dtype=torch.float32, device=dev)
     score = torch.where(slot_ok, score_f[idx], zeros_rk)  # [P, K]
-
-    g_i = genome_of[torch.clamp(gf, max=G_pad - 1)].long()
-    g_j = genome_of[cf].long()
-    (M,) = _chunked_genome_multi([(score, "max")], g_j, n_gen)
-    jpos = inv_perm[cf].long()
-    M_at_gj = torch.gather(M, 1, g_j)  # M[row, gen(j)]
-    M_j_gi = M[jpos, g_i[:, None].expand_as(jpos)]  # M[j, genome(i)]
-    inter_genome = g_j != g_i[:, None]
-    accept = (
-        (score > 0) & inter_genome & (score == M_at_gj) & (score == M_j_gi)
-    )
-    lt1v = torch.where(accept & (score < 1.0), score, zeros_rk)
-    acc_cell = accept & (cf > gf[:, None])
     # past 128 genomes only the edge-critical ims matrix is aggregated;
     # the O(n_gen^2) stats matrices are print-only diagnostics
     # (Pangenes.java:130-143) and the host path degrades the same way
@@ -182,44 +282,23 @@ def _bbh_flat_local(grow, cand, counts, pi, pj, fi, fp, ft, fv,
         atp = torch.where(slot_ok, atpf[idx], zeros_rk)
     else:
         ap = atp = score
-    ims, gmin_s, gmin_p, gmax_p = _ims_and_aggregates(
-        lt1v, acc_cell, score, ap, atp, g_i, g_j, n_gen, with_stats
-    )
-    thr_cell = ims[g_i[:, None].expand_as(g_j), g_j]
-    row_thr = torch.where(
-        accept, thr_cell, torch.full_like(thr_cell, float("inf"))
-    ).amin(1)
-    intra = (
-        (score > 0)
-        & (~inter_genome)
-        & (gf[:, None] < cf)
-        & (score == M_at_gj)
-        & (score == M_j_gi)
-        & (score >= row_thr[:, None])
-    )
+    accept, intra, acc_cell, mats = _bbh_core(
+        score, gf, cf, ap, atp, inv_perm, genome_of, n_gen, with_stats)
     # canonical emission (intra already is; accept is symmetric)
     emask = (accept | intra) & (cf > gf[:, None])
-    (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
-    n_edges = int(eidx.shape[0])
-    while n_edges > edge_cap:
-        edge_cap = _next_pow2(n_edges)
-    fill = torch.full((edge_cap - n_edges,), -1, dtype=eidx.dtype, device=dev)
-    eidx = torch.cat([eidx, fill])
-    safe = torch.clamp(eidx, min=0)
-    found = eidx >= 0
-    e_row = torch.where(found, gf[safe // K], torch.full_like(safe, -1))
-    e_col = cf.reshape(-1)[safe]
-    fpos = torch.clamp(base[safe // K] + (safe % K), max=n_flat - 1)
-    e_inter = fi[fpos]
-    e_acc = accept.reshape(-1)[safe] & found
+
+    def inter_at(flat):
+        return fi[torch.clamp(base[flat // K] + (flat % K), max=n_flat - 1)]
+
+    e_row, e_col, e_inter, e_acc, n_edges, edge_cap = _emit(
+        emask, accept, gf, cf, inter_at, edge_cap)
     counts_out = {
         "n_edges": n_edges,
         "n_valid": int((score_f > 0).sum()),
         "n_inter": int(acc_cell.sum()),
         "n_intra": int(intra.sum()),
     }
-    return (e_row, e_col, e_inter, e_acc, counts_out,
-            (ims, gmin_s, gmin_p, gmax_p), edge_cap)
+    return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
 
 
 def compute_network_device(
@@ -235,10 +314,15 @@ def compute_network_device(
     rows) so the per-row maxima are complete; on candidate-cap overflow
     the whole extraction reruns at the next power-of-two cap.
 
-    ``capture``, when given, receives the runner, the extraction layout
-    and the join's kernel name, inputs and outputs (the table that kernel
-    read, depths, pair lists, counters), so that a caller can check and
-    time the kernel and the bound bits at the shapes of this run."""
+    Backend ``"cuda"`` joins the flat pair list with its join kernel;
+    backend ``"xla"`` joins inside the extraction (at the whole padded
+    width) and runs the BBH on the [rows, K] outputs.
+
+    ``capture``, when given, receives the runner and the extraction
+    layout, and under backend ``"cuda"`` the join's kernel name, inputs
+    and outputs (the table that kernel read, depths, pair lists,
+    counters), so that a caller can check and time the kernel and the
+    bound bits at the shapes of this run."""
     config = config or PipelineConfig()
     check_ported(config)
     dev = resolve_device(device if device is not None else config.device)
@@ -288,12 +372,18 @@ def compute_network_device(
     starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
 
     K = config.candidate_cap
-    use_T = runner.use_bound_bits(len(starts), row_block)
+    # backend "xla" joins inside the extraction ([rows, K] counters, no
+    # join kernel, no bound bits), as the JAX package gates both on its
+    # pallas backend
+    use_kernel = resolve_backend(config.backend) == "cuda"
+    use_T = use_kernel and runner.use_bound_bits(len(starts), row_block)
     grow_h = runner.grow_layout(perm_ext, starts, row_block).reshape(-1)
     while True:
-        grow_d, cand_d, counts_d = runner.extract(
-            perm_ext, starts, row_block, K, upper_only=False, from_T=use_T,
+        out = runner.extract(
+            perm_ext, starts, row_block, padded.width, K,
+            do_join=not use_kernel, upper_only=False, from_T=use_T,
         )
+        counts_d = out[-1]
         counts_h = counts_d.reshape(-1).cpu().numpy()
         over = (counts_h > K) & (grow_h < G)
         if not np.any(over):
@@ -302,19 +392,23 @@ def compute_network_device(
         if K > MAX_CANDIDATE_CAP:
             return None  # pathological: the host cells path
     _mark(f"extract(K={K})")
-
-    pair_cap = runner.pair_capacity(counts_h, K)
-    fpi, fpj, fi, fp, ft, fv = runner.flatten_join(
-        grow_d, cand_d, counts_d, K, pair_cap
-    )
     if capture is not None:
-        capture.update(
-            runner=runner, perm_ext=perm_ext, starts=starts,
-            row_block=row_block, use_T=use_T, join_kernel=runner.join_kernel,
-            table=runner.join_table, dg=runner.dg, pi=fpi, pj=fpj,
-            inter=fi, perc=fp, tr=ft,
+        capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
+                       row_block=row_block, use_T=use_T)
+
+    pair_cap = None
+    if use_kernel:
+        grow_d, cand_d, counts_d = out
+        pair_cap = runner.pair_capacity(counts_h, K)
+        fpi, fpj, fi, fp, ft, fv = runner.flatten_join(
+            grow_d, cand_d, counts_d, K, pair_cap
         )
-    _mark(f"flatten_join(pair_cap={pair_cap})")
+        if capture is not None:
+            capture.update(
+                join_kernel=runner.join_kernel, table=runner.join_table,
+                dg=runner.dg, pi=fpi, pj=fpj, inter=fi, perc=fp, tr=ft,
+            )
+        _mark(f"flatten_join(pair_cap={pair_cap})")
 
     # gene -> row position
     inv_perm = np.zeros(G_pad, dtype=np.int32)
@@ -337,11 +431,15 @@ def compute_network_device(
     if cap_env:
         edge_cap = _next_pow2(int(cap_env))
     edge_cap_initial = edge_cap
-    (e_row, e_col, e_inter, e_acc, cnt, mats, edge_cap) = _bbh_flat_local(
-        grow_d, cand_d, counts_d, fpi, fpj, fi, fp, ft, fv,
-        runner._put(inv_perm), runner._put(lens_pad),
-        runner._put(genome_pad), n_gen, edge_cap,
-    )
+    tail = (runner._put(inv_perm), runner._put(lens_pad),
+            runner._put(genome_pad), n_gen, edge_cap)
+    if use_kernel:
+        (e_row, e_col, e_inter, e_acc, cnt, mats, edge_cap) = (
+            _bbh_flat_local(grow_d, cand_d, counts_d, fpi, fpj, fi, fp, ft,
+                            fv, *tail))
+    else:
+        (e_row, e_col, e_inter, e_acc, cnt, mats, edge_cap) = _bbh_local(
+            *out[:-1], *tail)
     _mark(f"bbh(edge_cap={edge_cap})")
 
     # --- ship the accepted cells: bit-packed to 8 bytes per cell when
@@ -423,15 +521,17 @@ def compute_network_device(
         "candidate_cap_final": int(K),
         "bound_bits_mode": bool(use_T),
         "edge_cap_initial": int(edge_cap_initial),
-        "pair_cap": int(pair_cap),
-        "lane_D": int(runner.lane_D),
-        "join_kernel": runner.join_kernel,
+        # backend "xla" has no flat pair list and no join table (None, as
+        # in the JAX package)
+        "pair_cap": int(pair_cap) if use_kernel else None,
+        "lane_D": int(runner.lane_D) if use_kernel else None,
+        "join_kernel": runner.join_kernel if use_kernel else None,
         # only when the lane2 table exists: under lane or roll, building
         # it would cost memory for nothing (and cannot pack when the
         # input forced the lane fallback)
         "lane_table_cols": (
             int(runner.all_lane2.shape[1])
-            if runner.join_kernel == "lane2" else None
+            if use_kernel and runner.join_kernel == "lane2" else None
         ),
         "edge_cap": int(edge_cap),
     }

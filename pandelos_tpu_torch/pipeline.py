@@ -19,7 +19,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from pandelos_tpu_torch.cluster import cluster_network, families_as_names
-from pandelos_tpu_torch.config import PipelineConfig, check_ported
+from pandelos_tpu_torch.config import (
+    PipelineConfig,
+    check_ported,
+    resolve_backend,
+)
 from pandelos_tpu_torch.index import KmerIndex, build_index
 from pandelos_tpu_torch.io.clus import family_lines, write_clus
 from pandelos_tpu_torch.io.faa import FaaDataset, read_faa
@@ -45,10 +49,17 @@ class PipelineResult:
 def compute_cells(
     index: KmerIndex, config: PipelineConfig, capture: Optional[dict] = None
 ) -> ScoreCells:
-    """The valid cells of the index on the host: the candidate engine's
-    cells path for backend ``"cuda"``, the posting walk for ``"oracle"``."""
-    if config.backend == "oracle":
+    """The valid cells of the index on the host, dispatched as in the JAX
+    package: the candidate engine's cells path for backends ``"cuda"``
+    and ``"xla"``, the dense scorer for ``"dense"``, the posting walk for
+    ``"oracle"``."""
+    backend = resolve_backend(config.backend)
+    if backend == "oracle":
         return compute_cells_oracle(index)
+    if backend == "dense":
+        from pandelos_tpu_torch.ops.score import compute_cells_xla
+
+        return compute_cells_xla(index, config, capture=capture)
     from pandelos_tpu_torch.ops.candidate import compute_cells_candidate
 
     return compute_cells_candidate(index, config, capture=capture)
@@ -61,13 +72,15 @@ def run_pipeline(
     dataset: Optional[FaaDataset] = None,
     capture: Optional[dict] = None,
 ) -> PipelineResult:
-    """.faa -> .net + .clus (+ .stats.json) with the ``"cuda"`` engine
-    or the ``"oracle"`` host path.  The engine builds the network on the
-    device unless ``config.device_bbh`` is False; it takes the cells path
+    """.faa -> .net + .clus (+ .stats.json) with the backend of
+    ``config`` (see :mod:`pandelos_tpu_torch.config`).  The candidate
+    engine (``"cuda"``, ``"xla"``) builds the network on the device
+    unless ``config.device_bbh`` is False; it takes the cells path
     (:func:`compute_cells`, then BBH on the host) then, and when a row's
-    candidates pass the largest device cap.  ``capture``, when given,
+    candidates pass the largest device cap.  ``"dense"`` and
+    ``"oracle"`` always take the cells path.  ``capture``, when given,
     receives the index and the engine's join inputs (see
-    ``compute_network_device``)."""
+    ``compute_network_device``) or the dense pass's times."""
     config = config or PipelineConfig()
     check_ported(config)
     times = {}
@@ -106,7 +119,8 @@ def run_pipeline(
         )
 
     net = None
-    if config.backend == "cuda" and config.device_bbh is not False:
+    if (resolve_backend(config.backend) in ("cuda", "xla")
+            and config.device_bbh is not False):
         from pandelos_tpu_torch.ops.net_device import compute_network_device
 
         t = time.monotonic()

@@ -149,7 +149,8 @@ def test_extraction_matches_jax(engines, from_T, upper_only):
         *args, e["tpad"].width, K, do_join=False, upper_only=upper_only,
         from_T=from_T)]
     got = [x.numpy() for x in e["tr"].extract(
-        *args, K, upper_only=upper_only, from_T=from_T)]
+        *args, e["tpad"].width, K, do_join=False, upper_only=upper_only,
+        from_T=from_T)]
     for g, w in zip(got, want):  # grow, cand, counts
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(
@@ -166,7 +167,8 @@ def test_flatten_join_matches_jax(engines):
     args = (e["perm_ext"], e["starts"], e["R"])
     jout = e["jr"].extract(*args, e["tpad"].width, K, do_join=False,
                            from_T=True)
-    tout = e["tr"].extract(*args, K, from_T=True)
+    tout = e["tr"].extract(*args, e["tpad"].width, K, do_join=False,
+                           from_T=True)
     counts_h = np.asarray(jout[2]).reshape(-1)
     assert (counts_h > K).any()
     pair_cap, chunk = e["jr"].pair_capacity(counts_h, K)

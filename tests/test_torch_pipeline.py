@@ -1,5 +1,6 @@
 """The port end to end on the CPU: goldens byte for byte on every join
-kernel and on the cells path, the shared index, the import boundary,
+kernel, on the cells path and on every backend name, the shared index,
+the import boundary,
 device resolution, lane2's fallback for inputs it cannot pack, the work
 and memory models, and a raise for every path that is not ported yet."""
 
@@ -117,13 +118,18 @@ def test_native_core_is_used():
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     code = (
-        "import sys\n"
+        "import filecmp, sys\n"
         "from pandelos_tpu_torch.config import PipelineConfig\n"
         "from pandelos_tpu_torch.pipeline import run_pipeline\n"
         "for kw in ({}, {'join_kernel': 'lane'}, {'join_kernel': 'roll'},\n"
-        "           {'device_bbh': False}):\n"
+        "           {'device_bbh': False}, {'backend': 'xla'},\n"
+        "           {'backend': 'xla', 'device_bbh': False},\n"
+        "           {'backend': 'dense'}):\n"
         f"    run_pipeline({os.path.join(DATA, 'toy.faa')!r}, "
         f"{str(tmp_path / 'toy')!r}, PipelineConfig(device='cpu', **kw))\n"
+        "    assert filecmp.cmp("
+        f"{str(tmp_path / 'toy.net')!r}, "
+        f"{os.path.join(GOLDEN, 'toy.net')!r}, shallow=False), kw\n"
         "import pandelos_tpu_torch.ops.pair_join, pandelos_tpu_torch.kernels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pandelos_tpu' or m.startswith('pandelos_tpu.')]\n"
@@ -154,7 +160,8 @@ def test_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 # the options of the JAX package's config: those that raise name the
-# ROADMAP item that ports them; the join kernels and the cells path run
+# ROADMAP item that ports them; the JAX backend names, the join kernels
+# and the cells path run
 OPTIONS = {
     "backend_xla": dict(backend="xla"),
     "backend_dense": dict(backend="dense"),
@@ -168,7 +175,8 @@ OPTIONS = {
     "device_bbh_off": dict(device_bbh=False),
     "profile_dir": dict(profile_dir="trace"),
 }
-RUNS = {"join_kernel_lane", "join_kernel_roll", "device_bbh_off"}
+RUNS = {"backend_xla", "backend_dense", "backend_pallas", "backend_auto",
+        "join_kernel_lane", "join_kernel_roll", "device_bbh_off"}
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))
@@ -180,9 +188,10 @@ def test_unported_option_raises(name, tmp_path):
     toy = os.path.join(DATA, "toy.faa")
     if name in RUNS:
         run_pipeline(toy, prefix, _cfg(**OPTIONS[name]))
+        # the JAX run takes the case's backend, else its pallas engine
         jax_run_pipeline(toy, prefix + "_jax", JaxConfig(
-            backend="pallas", row_block=16, col_block=128, candidate_cap=64,
-            **OPTIONS[name]))
+            row_block=16, col_block=128, candidate_cap=64,
+            **{"backend": "pallas", **OPTIONS[name]}))
         for suffix in (".net", ".clus"):
             assert filecmp.cmp(prefix + suffix, prefix + "_jax" + suffix,
                                shallow=False), suffix

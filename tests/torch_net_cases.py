@@ -1,7 +1,8 @@
 """Cases and runners shared by the tests that hold the port's on-device
-BBH network against the JAX package's ``compute_network_device``
-(pallas backend, interpret mode, one CPU device).  The cases mirror
-tests/test_net_device.py; each JAX result is computed once per process."""
+BBH network against the JAX package's ``compute_network_device`` (pallas
+backend in interpret mode, or the xla backend; one CPU device).  The
+cases mirror tests/test_net_device.py; each JAX result is computed once
+per process."""
 
 import functools
 
@@ -56,7 +57,7 @@ def _indexes(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_result(name, no_stats):
+def _jax_result(name, no_stats, backend="pallas"):
     import os
 
     _, rb, cap = CASES[name]
@@ -65,7 +66,7 @@ def _jax_result(name, no_stats):
         os.environ["PANDELOS_NO_PAIR_STATS"] = "1"
     try:
         out = jax_network(_indexes(name)[0], JaxConfig(
-            backend="pallas", row_block=rb, col_block=128, candidate_cap=cap))
+            backend=backend, row_block=rb, col_block=128, candidate_cap=cap))
     finally:
         os.environ.pop("PANDELOS_NO_PAIR_STATS", None)
         if old is not None:
@@ -74,10 +75,11 @@ def _jax_result(name, no_stats):
     return out
 
 
-def _port(name):
+def _port(name, backend="cuda"):
     _, rb, cap = CASES[name]
     out = compute_network_device(_indexes(name)[1], PipelineConfig(
-        row_block=rb, col_block=128, candidate_cap=cap, device="cpu"))
+        backend=backend, row_block=rb, col_block=128, candidate_cap=cap,
+        device="cpu"))
     assert out is not None
     return out
 
