@@ -11,18 +11,26 @@ and at the shapes of the runs below,
 checks the device division and the bound bits against the host, and
 drives the engine (``.faa`` -> ``.net`` + ``.clus``, backend ``"cuda"``)
 on ``bench_cache/mycoplasma64.faa`` at full size through each of its
-paths: the default (lane2, device BBH), the cells path with the lane
+paths: the default (lane2, device BBH; its allocation must stay within
+``memory_model``), the cells path with the lane
 kernel (host BBH), the roll join, and lane2's fallback on an input that
 cannot pack (derived from mycoplasma64 with four seeded homopolymer
 tracts); then the JAX package's kernel-free backends on mycoplasma64,
 each of which must launch none of the join kernels: ``"xla"`` with
 device BBH (the JAX package's default path), ``"xla"`` with the cells
-path, and ``"dense"``; then the four smaller presets.  Every output must
-be byte-identical to its committed golden (the derived input's two runs
-to each other).  Phases print one line each; a ``kernels`` JSON line
-comes before the last line, and the last line is the result object.  Any
-failure exits non-zero without a result; so does a machine without a
-card, and a directory without the package.
+path, and ``"dense"`` (before each, the device memory held must be back
+at its level before the default path's run, with no garbage
+collection); then the default path, xla and dense again under
+``config.profile_dir`` (``torch.profiler``; each prints the card's busy
+share and its top kernels); then mycoplasma16, the CLI's ``examples``
+command over its four presets in a process of its own, and the
+host-only ``"reference"`` backend on ``tests/golden/synth_real.faa``.
+Every output must be byte-identical to its committed golden (the derived
+input's two runs to each other; the examples' generated ``.faa`` too).
+Phases print one line each; a ``kernels`` JSON line comes before the
+last line, and the last line is the result object.  Any failure exits
+non-zero without a result; so does a machine without a card, and a
+directory without the package.
 
     python3 chip_smoke.py --kernels-only
 
@@ -33,9 +41,9 @@ prints no result line: the short first call after a kernel changed.
 from __future__ import annotations
 
 import filecmp
-import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -47,12 +55,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, "bench_cache")
 MAIN = "mycoplasma64"
 MAIN_TARGETS = {"n_cells": 2_004_000, "edges": 938_741, "families": 1_607}
-PRESETS = ["salmonella7", "escherichia10", "xanthomonas14", "mycoplasma16"]
+PRESETS = ["mycoplasma16"]
+# the presets of the CLI's examples command (its default)
+EXAMPLES = ["salmonella7", "escherichia10", "xanthomonas14", "mycoplasma64"]
+# cuBLAS and CUTLASS matrix-multiply kernels, by name
+MATMUL_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W); the guide's table
 # has no int32 row, so int32 compare-and-add work is held to the CUDA
 # cores' f32 rate (the same cores issue int32 ops)
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+# device memory held between runs may differ from its level before the
+# main path by no more than this
+HELD_SLACK_BYTES = 0.25e9
 
 
 def log(phase, msg):
@@ -436,22 +451,28 @@ def check_captured(kind, cap, name):
     return r
 
 
-def check_memory_model(ph, index, cfg, K, allocated, dev):
+def check_memory_model(ph, index, cfg, K, allocated, dev, pair_cap=None):
     """The memory model that check_hbm_fit reads, at the candidate cap
-    ``K`` that a run reached, must hold the bytes the run allocated."""
+    ``K`` that a run reached (and, for the cuda backend, its flat pair
+    list's ``pair_cap``), must hold the bytes the run allocated."""
     from pandelos_tpu_torch.config import PipelineConfig
     from pandelos_tpu_torch.ops.candidate import memory_model
 
     config = PipelineConfig(**cfg)
-    mm = memory_model(index, config, device=dev, cand_cap=K)
+    mm = memory_model(index, config, device=dev, cand_cap=K,
+                      pair_cap=pair_cap)
     if allocated > mm["total_bytes"]:
         raise AssertionError(f"{cfg}: {allocated} bytes allocated past the "
                              f"memory model's {mm['total_bytes']}")
+    at_k = memory_model(index, config, device=dev, cand_cap=K)["total_bytes"]
     top = memory_model(index, config, device=dev)["total_bytes"]
-    log(ph, f"memory model {mm['total_bytes'] / 1e9:.2f} GB at K {K} "
-        f"(in-scan join and BBH {mm['join_temp_bytes'] / 1e9:.2f} GB) holds "
-        f"the {allocated / 1e9:.2f} GB allocated; {top / 1e9:.2f} GB at the "
-        f"largest cap")
+    log(ph, f"{cfg}: memory model {mm['total_bytes'] / 1e9:.2f} GB at K {K}"
+        f"{f', pair_cap {pair_cap}' if pair_cap else ''} (candidate work "
+        f"{mm['join_temp_bytes'] / 1e9:.2f} GB, bound bits "
+        f"{mm['bound_bits_bytes'] / 1e9:.2f} GB, signatures "
+        f"{mm['sig_bytes'] / 1e9:.2f} GB) holds the {allocated / 1e9:.2f} GB "
+        f"allocated; {at_k / 1e9:.2f} GB at K {K} with any pair list; "
+        f"{top / 1e9:.2f} GB at the largest cap")
 
 
 def run(name, outdir, capture=None, golden=None, tag="", dataset=None,
@@ -619,11 +640,15 @@ def main() -> int:
     try:
         # 6. the main path end to end (counters zeroed just before it)
         cap = {}
+        torch.cuda.empty_cache()
+        held6 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         zero_launches()
         for k in loader.CALLS:
             loader.CALLS[k] = 0
         res, wall, _ = run(MAIN, outdir, capture=cap)
         n6 = launches()
+        peak6 = torch.cuda.max_memory_allocated(dev)
         native = dict(loader.CALLS)
         net = res.stats["network"]
         if n6["lane2"] < 1 or n6["lane"] or n6["roll"]:
@@ -642,8 +667,11 @@ def main() -> int:
         log(6, f"pair_cap {net['pair_cap']}, joined pairs "
             f"{net['n_joined_pairs']}, K {net['candidate_cap_final']}, "
             f"lane_D {net['lane_D']}, bound bits {net['bound_bits_mode']}, "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+            f"peak device memory {peak6 / 1e9:.2f} GB ({held6 / 1e9:.2f} GB "
+            f"held before the run)")
+        check_memory_model(6, cap["index"], dict(backend="cuda"),
+                           net["candidate_cap_final"], peak6 - held6, dev,
+                           pair_cap=net["pair_cap"])
 
         # 5. bound bits and signatures of the main path vs the host
         from scipy import sparse
@@ -800,11 +828,17 @@ def main() -> int:
                                                      device_bbh=False)),
                              (13, "_dense", dict(backend="dense"))):
             cap = {}
-            # an index and its cached runner hold each other: collect the
-            # earlier runs' before the peak is reset
-            gc.collect()
+            # the earlier runs' device memory went with their last
+            # reference (no collection: an index and its runner do not
+            # hold each other)
             torch.cuda.empty_cache()
             held = torch.cuda.memory_allocated(dev)
+            log(ph, f"held before the run {held / 1e9:.4f} GB, before "
+                f"phase 6 {held6 / 1e9:.4f} GB")
+            if abs(held - held6) > HELD_SLACK_BYTES:
+                raise AssertionError(
+                    f"phase {ph}: {held} bytes held before the run, "
+                    f"{held6} before phase 6")
             torch.cuda.reset_peak_memory_stats(dev)
             zero_launches()
             res, wall, _ = run(MAIN, outdir, capture=cap, tag=tag, **cfg)
@@ -835,12 +869,91 @@ def main() -> int:
             del cap, res
             torch.cuda.empty_cache()
 
-        # 7. the four smaller presets
+        # 14. profiled runs (config.profile_dir, torch.profiler) of the
+        # default path, xla and dense: the card's busy share of the score
+        # and network window, and the kernels that fill it
+        for tag, cfg in (("_prof_cuda", {}),
+                         ("_prof_xla", dict(backend="xla")),
+                         ("_prof_dense", dict(backend="dense"))):
+            pdir = os.path.join(outdir, "profile" + tag)
+            res, wall, _ = run(MAIN, outdir, tag=tag, profile_dir=pdir, **cfg)
+            check_targets(MAIN, res)
+            with open(os.path.join(pdir, "profile_summary.json")) as fh:
+                summ = json.load(fh)
+            share = summ["busy_share"]
+            if share is None or not 0 < share <= 1:
+                raise AssertionError(f"{tag}: busy_share {share}")
+            matmul_s = sum(k["seconds"] for k in summ["top_kernels"]
+                           if MATMUL_KERNEL.search(k["name"]))
+            log(14, f"{MAIN} {cfg or dict(backend='cuda')} profiled: "
+                f".net/.clus byte-identical to golden; wall {wall:.2f}s; "
+                f"window {summ['window_s']:.4f}s (score "
+                f"{res.phase_times['score']:.4f}s + network "
+                f"{res.phase_times['network']:.4f}s), device busy "
+                f"{summ['device_busy_s']:.4f}s, busy_share {share:.4f}, "
+                f"{summ['n_kernel_launches']} kernel launches; matmul "
+                f"kernels (top ten) {matmul_s:.4f}s")
+            log(14, "top kernels [name, launches, s] " + json.dumps(
+                [[k["name"][:90], k["launches"], round(k["seconds"], 6)]
+                 for k in summ["top_kernels"]]))
+            del res
+            shutil.rmtree(pdir)  # the traces run to tens of MB
+
+        # 7. a smaller preset (the example presets follow in 15)
         for name in PRESETS:
             r, w, _ = run(name, outdir)
             log(7, f"{name}: .net/.clus byte-identical to golden; edges "
                 f"{len(r.edges)}, families {r.stats['n_families']}; wall "
                 f"{w:.2f}s")
+
+        # 15. the CLI's examples command (the reference's example runner:
+        # generate each preset, run it, report its quality) over its four
+        # presets, in a process of its own on the card
+        wd = os.path.join(outdir, "examples")
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pandelos_tpu_torch.cli", "examples", wd],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli examples exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        with open(os.path.join(wd, "examples.json")) as fh:
+            summary = json.load(fh)
+        for name in EXAMPLES:
+            for suffix in (".faa", ".net", ".clus"):
+                if not filecmp.cmp(os.path.join(wd, name + suffix),
+                                   os.path.join(CACHE, name + suffix),
+                                   shallow=False):
+                    raise AssertionError(f"cli examples: {name}{suffix} "
+                                         f"differs from bench_cache")
+            log(15, f"cli examples {name}: generated .faa and .net/.clus "
+                f"byte-identical to bench_cache; families "
+                f"{summary[name]['n_families']}, core families "
+                f"{summary[name]['quality']['core_families']}; run "
+                f"{summary[name]['elapsed_s']}s")
+        log(15, f"cli examples: {len(EXAMPLES)} presets in "
+            f"{time.monotonic() - t:.2f}s (process start, preset "
+            f"generation and runs)")
+
+        # 16. the reference backend: the whole-run transcription twin, on
+        # the host
+        from pandelos_tpu_torch.config import PipelineConfig
+        from pandelos_tpu_torch.pipeline import run_pipeline
+
+        gold = os.path.join(ROOT, "tests", "golden", "synth_real")
+        prefix = os.path.join(outdir, "synth_real_reference")
+        t = time.monotonic()
+        res = run_pipeline(gold + ".faa", prefix,
+                           PipelineConfig(backend="reference"))
+        for suffix in (".net", ".clus"):
+            if not filecmp.cmp(prefix + suffix, gold + suffix, shallow=False):
+                raise AssertionError(f"reference backend: synth_real{suffix} "
+                                     f"differs from tests/golden")
+        log(16, f"reference backend on synth_real ({res.n_sequences} genes): "
+            f".net/.clus byte-identical to tests/golden; edges "
+            f"{len(res.edges)}, families {res.stats['n_families']}; wall "
+            f"{time.monotonic() - t:.2f}s")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
 

@@ -4,9 +4,11 @@ NVIDIA H100.
 The JAX package ``pandelos_tpu`` stays beside this one as the reference.
 This package imports nothing of it (nor JAX): it keeps its own copies of
 the host layers (``io/``, ``index.py``, ``native/``, ``ksel.py``,
-``oracle/``, ``net.py``, ``cluster.py``) and ports the device path of
-``cli run`` to torch, with the exact profile join as a hand-written CUDA
-kernel (``csrc/lane2_join.cu``).  Entry points run on the card unless the
+``oracle/``, ``net.py``, ``cluster.py``, ``bench/``, ``dictionaries.py``,
+``reference.py``) and ports the device paths to torch, with the exact
+profile joins as hand-written CUDA kernels (``csrc/``).  It runs every
+backend and CLI command of the JAX package on one card; the multi-device
+options are not ported yet.  Entry points run on the card unless the
 caller asks for the CPU (``device="cpu"``), where every kernel wrapper
 takes its plain PyTorch version.
 """

@@ -18,10 +18,14 @@ package reads (its mesh fields are left out), plus ``device``.  Backends
   the BBH network on the device over its [rows, K] outputs or on the
   host;
 - ``"dense"``: the blocked-matmul scorer (``ops/score.py``), host BBH;
-- ``"oracle"``: the host posting walk.
+- ``"oracle"``: the host posting walk;
+- ``"reference"``: the whole-run transcription twin
+  (:mod:`pandelos_tpu_torch.reference`), on the host; ``device`` does not
+  change it.
 
-Options of paths that are not ported yet raise :class:`NotPortedError`
-from :func:`check_ported`, naming the ROADMAP queue item that ports them.
+The multi-GPU options (``n_devices`` > 1, ``ring_extract``) are not
+ported yet: they raise :class:`NotPortedError` from :func:`check_ported`,
+naming the ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations
@@ -97,7 +101,10 @@ class PipelineConfig:
     # pandelos.sh:73-76); allows resuming clustering without rescoring.
     checkpoint_dir: Optional[str] = None
 
-    # --- observability (JAX profiler trace directory: not ported)
+    # --- observability
+    # When set, the score and network phases run under a torch.profiler
+    # trace written to this directory with a summary of the card's busy
+    # share (pandelos_tpu_torch/profiling.py).
     profile_dir: Optional[str] = None
 
     def to_json(self) -> str:
@@ -110,15 +117,12 @@ class PipelineConfig:
 
 JOIN_KERNELS = ("lane2", "lane", "roll")
 
-BACKENDS = ("cuda", "xla", "dense", "oracle", "pallas", "auto")
+BACKENDS = ("cuda", "xla", "dense", "oracle", "reference", "pallas",
+            "auto")
 # the JAX package's backend names that name a backend of this package
 _ALIASES = {"pallas": "cuda", "auto": "xla"}
-
-# backends of the JAX package not ported yet, and the ROADMAP item of each
-_BACKEND_QUEUE = {
-    "reference": "ROADMAP Queue 4 item 1 (the reference transcription "
-    "backend; its clustering twin needs networkx)",
-}
+# the ROADMAP item that ports the multi-GPU paths
+MULTI_GPU_ITEM = "ROADMAP Queue 1 item 1 (multi-GPU)"
 
 
 def resolve_backend(backend: str) -> str:
@@ -131,29 +135,18 @@ def resolve_backend(backend: str) -> str:
 def check_ported(config: PipelineConfig) -> None:
     """Raise :class:`NotPortedError` for any option whose path is not
     ported yet; never run another path in its place."""
-    if config.backend in _BACKEND_QUEUE:
-        raise NotPortedError(
-            f"backend {config.backend!r} is not ported: "
-            f"{_BACKEND_QUEUE[config.backend]}"
-        )
     if config.backend not in BACKENDS:
         raise ValueError(f"unknown backend: {config.backend}")
     b = resolve_backend(config.backend)
-    if config.profile_dir:
-        raise NotPortedError(
-            "profile_dir is not ported: ROADMAP Queue 4 item 2 (a "
-            "torch.profiler trace of the score phase)"
-        )
-    if b == "oracle":
+    if b in ("oracle", "reference"):
         return
     if config.n_devices is not None and config.n_devices > 1:
         raise NotPortedError(
-            f"n_devices={config.n_devices} is not ported: ROADMAP Queue 1 "
-            "item 9 (multi-GPU)"
+            f"n_devices={config.n_devices} is not ported: {MULTI_GPU_ITEM}"
         )
     if config.ring_extract:
         raise NotPortedError(
-            "ring_extract is not ported: ROADMAP Queue 1 item 9 (ring mode)"
+            f"ring_extract is not ported: {MULTI_GPU_ITEM}, ring mode"
         )
     if config.join_kernel not in JOIN_KERNELS:
         raise ValueError(

@@ -40,6 +40,7 @@ CPU.
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -238,6 +239,13 @@ _JOIN_SLOT_BYTES = 48
 # the rest of the xla backend's [rows, K] work per slot, every temporary
 # summed: the extraction's candidate lists and the device BBH over them
 _BBH_SLOT_BYTES = 256
+# the "cuda" backend's flat path, every temporary summed as above: per
+# [rows, K] slot the extraction's candidate lists and the flat BBH's
+# re-expansion to [rows, K]; per flat pair slot (``pair_cap``) the pair
+# list, the join kernel's three outputs and the flat BBH's per-pair
+# scores
+_FLAT_BBH_SLOT_BYTES = 176
+_PAIR_SLOT_BYTES = 328
 # candidate caps past this go to the host cells path
 # (compute_cells_candidate + host BBH); compute_network_device doubles
 # its cap up to it
@@ -338,11 +346,16 @@ class Runner:
     """Single-device counterpart of the JAX package's ``MeshRunner``: the
     device-resident padded profiles, signatures, join tables and per-gene
     depths of one index, and the extraction and flatten-join passes over
-    them."""
+    them.
+
+    The index caches its runner (:func:`get_runner`), so the runner
+    holds the index weakly: with a strong reference each would keep the
+    other, and a run's device tensors would outlive it until a cyclic
+    collection."""
 
     def __init__(self, index: KmerIndex, padded, config, device):
         G_pad = padded.ids.shape[0]
-        self.index = index
+        self._index = weakref.ref(index)
         self.device = torch.device(device)
         self.G = index.n_sequences
         self.k2 = 2 * index.k
@@ -362,6 +375,13 @@ class Runner:
         self._dg = None
         self._T_cache = {}
         self.lane_D = 0
+
+    @property
+    def index(self) -> KmerIndex:
+        index = self._index()
+        if index is None:
+            raise ReferenceError("the runner's index was freed")
+        return index
 
     def _put(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -612,7 +632,7 @@ def work_model(
 def memory_model(
     index: KmerIndex, config: Optional[PipelineConfig] = None,
     budget_bytes: Optional[float] = None, device=None,
-    cand_cap: Optional[int] = None,
+    cand_cap: Optional[int] = None, pair_cap: Optional[int] = None,
 ) -> dict:
     """Device-memory accounting of the single-device engine against the
     card's memory (``torch.cuda.get_device_properties(dev).total_memory``
@@ -620,12 +640,17 @@ def memory_model(
     copy in bf16, the padded profiles, the table of the join kernel the
     run takes (packed lane2 [G_pad, D*128], unpacked lane [G_pad,
     2*D*128] or pair [G_pad, 2W], each its own allocation), the bound-bit
-    matrix and its transpose, and the extraction workspace.  Backend
-    ``"xla"`` builds no join table and no bound bits; it counts instead
-    what its [rows, K] work allocates (:func:`join_slots_bytes` and the
-    device BBH's ``_BBH_SLOT_BYTES``) at ``cand_cap``: by default the
-    largest cap the run can reach, ``MAX_CANDIDATE_CAP`` with device BBH
-    and ``config.candidate_cap`` without."""
+    matrix and its transpose, the extraction workspace, and what the
+    candidate work allocates at ``cand_cap``: by default the largest cap
+    the run can reach, ``MAX_CANDIDATE_CAP`` with device BBH and
+    ``config.candidate_cap`` without.  Backend ``"xla"`` builds no join
+    table and no bound bits; its [rows, K] work is the in-scan join
+    (:func:`join_slots_bytes`) and the device BBH (``_BBH_SLOT_BYTES``).
+    Backend ``"cuda"``'s is the flat path: ``_FLAT_BBH_SLOT_BYTES`` per
+    [rows, K] slot and ``_PAIR_SLOT_BYTES`` per slot of the flat pair
+    list, whose length is ``pair_cap`` when a run knows it and else its
+    largest value at ``cand_cap`` (every slot holding a pair, rounded up
+    to a power of two as :meth:`Runner.pair_capacity` rounds)."""
     config = config or PipelineConfig()
     if budget_bytes is None:
         budget_bytes = float(
@@ -655,14 +680,18 @@ def memory_model(
         "lane": 8 * G_pad * lane_depth(index) * 128,
         "roll": 8 * G_pad * W,
     }[kernel]
-    join_temps = 0
+    if cand_cap is None:
+        cand_cap = config.candidate_cap if config.device_bbh is False \
+            else max(config.candidate_cap, MAX_CANDIDATE_CAP)
+    n_slots = rows * cand_cap
     if in_scan:
-        if cand_cap is None:
-            cand_cap = config.candidate_cap if config.device_bbh is False \
-                else max(config.candidate_cap, MAX_CANDIDATE_CAP)
-        n_slots = rows * cand_cap
         join_temps = (join_slots_bytes(n_slots, W)
                       + _BBH_SLOT_BYTES * n_slots)
+    else:
+        if pair_cap is None:
+            pair_cap = _next_pow2(max(n_slots, _PAIR_BLOCK))
+        join_temps = (_FLAT_BBH_SLOT_BYTES * n_slots
+                      + _PAIR_SLOT_BYTES * pair_cap)
     t_bytes = (
         2 * rows * rows
         if not in_scan and t_mode_enabled(1, 1, rows) else 0
@@ -702,10 +731,10 @@ def check_hbm_fit(index: KmerIndex, config, device) -> None:
         f"(card {mm['budget_bytes']/1e9:.1f}GB): signatures "
         f"{mm['sig_bytes']/1e9:.1f}GB + profiles "
         f"{mm['profile_bytes']/1e9:.1f}GB + {mm['join_kernel']} join table "
-        f"{mm['join_table_bytes']/1e9:.1f}GB + in-scan join "
+        f"{mm['join_table_bytes']/1e9:.1f}GB + candidate work "
         f"{mm['join_temp_bytes']/1e9:.1f}GB + bound bits "
         f"{mm['bound_bits_bytes']/1e9:.1f}GB; shard the input by genome "
-        f"subsets or wait for the multi-GPU path (ROADMAP Queue 1 item 9); "
+        f"subsets or wait for the multi-GPU path (ROADMAP Queue 1 item 1); "
         f"PANDELOS_IGNORE_HBM_MODEL=1 overrides"
     )
 

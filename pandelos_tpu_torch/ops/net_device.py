@@ -515,6 +515,7 @@ def compute_network_device(
             np.minimum(counts_h, K)[grow_h < G].sum(dtype=np.int64)
         ),
         "device_bbh": True,
+        "ring_extract": False,
         "device": str(dev),
         "n_devices": 1,
         "phase_s": dict(_phase_s),

@@ -54,7 +54,7 @@ def compute_cells(
     and ``"xla"``, the dense scorer for ``"dense"``, the posting walk for
     ``"oracle"``."""
     backend = resolve_backend(config.backend)
-    if backend == "oracle":
+    if backend in ("oracle", "reference"):
         return compute_cells_oracle(index)
     if backend == "dense":
         from pandelos_tpu_torch.ops.score import compute_cells_xla
@@ -63,6 +63,68 @@ def compute_cells(
     from pandelos_tpu_torch.ops.candidate import compute_cells_candidate
 
     return compute_cells_candidate(index, config, capture=capture)
+
+
+def _score_and_network(ds, index, k, config, times, capture):
+    """The score and network phases of ``run_pipeline``: the network of
+    the index with the backend of ``config``, their seconds in
+    ``times``."""
+    backend = resolve_backend(config.backend)
+    net = None
+    if backend == "reference":
+        # whole-run transcription twin (reference.py): its own cells from
+        # the raw sequences -> per-cell f32 finalize -> Pangenes.java dict
+        # BBH, on the host.  Clustering below also takes its netclu_ng.py
+        # transcription.
+        from pandelos_tpu_torch import reference as refmod
+
+        t = time.monotonic()
+        cells = refmod.compute_cells_reference(ds.sequences, k)
+        times["score"] = time.monotonic() - t
+        t = time.monotonic()
+        fcells = refmod.finalize_cells_reference(cells, index.kseq_lengths, k)
+        edges, rstats = refmod.build_network_reference(
+            fcells, index.seq_genome, ds.n_genomes
+        )
+        net = NetworkResult(
+            edges=edges,
+            n_inter_edges=rstats["n_inter_edges"],
+            n_intra_edges=rstats["n_intra_edges"],
+            genome_max=np.zeros((0, 0), np.float32),
+            inter_max_score=np.zeros((0, 0), np.float32),
+            stats=rstats,
+        )
+        times["network"] = time.monotonic() - t
+    elif backend in ("cuda", "xla") and config.device_bbh is not False:
+        from pandelos_tpu_torch.ops.net_device import compute_network_device
+
+        t = time.monotonic()
+        out = compute_network_device(index, config, capture=capture)
+        if out is not None:
+            edges, dstats = out
+            times["score"] = time.monotonic() - t
+            times["network"] = 0.0
+            net = NetworkResult(
+                edges=edges,
+                n_inter_edges=dstats.get("n_inter_edges", len(edges)),
+                n_intra_edges=dstats.get("n_intra_edges", 0),
+                genome_max=np.zeros((0, 0), np.float32),
+                inter_max_score=np.zeros((0, 0), np.float32),
+                stats=dstats,
+            )
+    if net is None:
+        t = time.monotonic()
+        cells = compute_cells(index, config, capture=capture)
+        times["score"] = time.monotonic() - t
+
+        t = time.monotonic()
+        finalized = finalize_scores(cells, index.kseq_lengths, k)
+        net = build_network(
+            finalized, index.seq_genome, ds.n_genomes, ds.n_sequences
+        )
+        times["network"] = time.monotonic() - t
+
+    return net
 
 
 def run_pipeline(
@@ -78,9 +140,12 @@ def run_pipeline(
     unless ``config.device_bbh`` is False; it takes the cells path
     (:func:`compute_cells`, then BBH on the host) then, and when a row's
     candidates pass the largest device cap.  ``"dense"`` and
-    ``"oracle"`` always take the cells path.  ``capture``, when given,
-    receives the index and the engine's join inputs (see
-    ``compute_network_device``) or the dense pass's times."""
+    ``"oracle"`` always take the cells path; ``"reference"`` runs the
+    transcription twin (:mod:`pandelos_tpu_torch.reference`) on the
+    host.  ``capture``, when given, receives the index and the engine's
+    join inputs (see ``compute_network_device``) or the dense pass's
+    times.  With ``config.profile_dir`` the score and network phases run
+    under a ``torch.profiler`` trace (:mod:`pandelos_tpu_torch.profiling`)."""
     config = config or PipelineConfig()
     check_ported(config)
     times = {}
@@ -118,36 +183,13 @@ def run_pipeline(
             stats={"complexity": report},
         )
 
-    net = None
-    if (resolve_backend(config.backend) in ("cuda", "xla")
-            and config.device_bbh is not False):
-        from pandelos_tpu_torch.ops.net_device import compute_network_device
-
-        t = time.monotonic()
-        out = compute_network_device(index, config, capture=capture)
-        if out is not None:
-            edges, dstats = out
-            times["score"] = time.monotonic() - t
-            times["network"] = 0.0
-            net = NetworkResult(
-                edges=edges,
-                n_inter_edges=dstats.get("n_inter_edges", len(edges)),
-                n_intra_edges=dstats.get("n_intra_edges", 0),
-                genome_max=np.zeros((0, 0), np.float32),
-                inter_max_score=np.zeros((0, 0), np.float32),
-                stats=dstats,
-            )
-    if net is None:
-        t = time.monotonic()
-        cells = compute_cells(index, config, capture=capture)
-        times["score"] = time.monotonic() - t
-
-        t = time.monotonic()
-        finalized = finalize_scores(cells, index.kseq_lengths, k)
-        net = build_network(
-            finalized, index.seq_genome, ds.n_genomes, ds.n_sequences
-        )
-        times["network"] = time.monotonic() - t
+    backend = resolve_backend(config.backend)
+    if config.profile_dir:
+        from pandelos_tpu_torch.profiling import profiled
+    else:
+        from contextlib import nullcontext as profiled
+    with profiled(config):
+        net = _score_and_network(ds, index, k, config, times, capture)
 
     if out_prefix and config.write_net:
         write_net(out_prefix + ".net", net.edges)
@@ -155,9 +197,16 @@ def run_pipeline(
         write_net(os.path.join(config.checkpoint_dir, "network.net"), net.edges)
 
     t = time.monotonic()
-    clusters = cluster_network(
-        net.edges, np.asarray(ds.seq_genome), ds.n_sequences
-    )
+    if backend == "reference":
+        from pandelos_tpu_torch.reference import cluster_reference
+
+        clusters = cluster_reference(
+            net.edges, np.asarray(ds.seq_genome), ds.n_sequences
+        )
+    else:
+        clusters = cluster_network(
+            net.edges, np.asarray(ds.seq_genome), ds.n_sequences
+        )
     fams, singles = families_as_names(clusters, ds.names)
     lines = family_lines(fams, singles)
     times["cluster"] = time.monotonic() - t

@@ -1,0 +1,525 @@
+"""Transcription-faithful reference runner — the ``reference`` backend.
+
+A pure-Python re-enactment of the reference pipeline's semantics, kept
+deliberately close to the original control flow so that it can stand in for
+the (unrunnable-here) Java/C++ pipeline as a whole-run differential twin:
+
+- score finalization: per-cell f32 arithmetic in the exact operation order
+  of ``library.cpp:493-512`` (one f32 divide per direction, 1/(2k)
+  validity with OR, score>0 retention);
+- network construction: the per-genome two-pass BBH filter of
+  ``Pangenes.java:60-183`` with dict-based maxima and a dict-of-edges
+  network (``PangeneNet.java:38-62`` analogue);
+- clustering: ``netclu_ng.py:41-175`` (graph build,
+  ``get_max_collision``, ``split_until_max_k``, singleton emission) as it
+  runs on networkx 3.x, with the parts of networkx it calls transcribed
+  here (graph storage, subgraph views and their copies, connected
+  components, Brandes edge betweenness, Girvan-Newman), so that the
+  backend needs no networkx.
+
+This module intentionally shares NO code with the production path
+(``net.py`` / ``cluster.py`` / ``ops/*``; it takes only the
+``ClusterResult`` record from ``cluster.py``): agreement between
+``--backend reference`` and the production backends on whole ``.net`` /
+``.clus`` outputs is the repo's substitute for running the reference's
+Java pipeline (no JVM in this environment).  See VERDICT r1 "next #6".
+
+Integer cells come from :func:`compute_cells_reference` below — a
+dict-based posting-list walk built from the RAW SEQUENCES, sharing no code
+with either the index builder (``index.py`` / ``native/host_index.cpp``) or
+the vectorized oracle (``oracle/cells.py``), so a systematic bug in the
+shared cells stage cannot hide from the five-backend golden tests
+(VERDICT r2 weak #4).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from pandelos_tpu_torch.oracle.cells import ScoreCells
+
+
+def compute_cells_reference(sequences, k: int) -> ScoreCells:
+    """Independent integer-cell computation, transcribed from the native
+    kernel's structure (``library.cpp:409-527``): per-gene k-mer multisets
+    (``do_ranking``, :134-150, here on raw k-mer strings instead of packed
+    ranks), postings restricted to k-mers with >= 2 (gene, k-mer) entries
+    (:308), then a per-row posting walk with dense color-stamped
+    accumulators (:437-487).
+
+    Pure Python dicts/lists end to end — deliberately shares no code or
+    data layout with ``index.py`` / ``oracle/cells.py``.  Costs one Python
+    iteration per reference "lookup", so it is usable to ~10^7-10^8
+    lookups (mid-scale datasets; large goldens regenerate offline)."""
+    n = len(sequences)
+    multis: List[Dict[str, int]] = []
+    for s in sequences:
+        d: Dict[str, int] = {}
+        for i in range(len(s) - k + 1):
+            km = s[i : i + k]
+            d[km] = d.get(km, 0) + 1
+        multis.append(d)
+
+    postings: Dict[str, list] = {}
+    for g, m in enumerate(multis):
+        for km, c in m.items():
+            postings.setdefault(km, []).append((g, c))
+    postings = {km: lst for km, lst in postings.items() if len(lst) >= 2}
+
+    inter = [0] * n
+    perc = [0] * n
+    tr = [0] * n
+    stamped = [False] * n
+    rows: List[int] = []
+    cols: List[int] = []
+    inter_out: List[int] = []
+    perc_out: List[int] = []
+    tr_out: List[int] = []
+    for i, m in enumerate(multis):
+        touched: List[int] = []
+        for km, ci in m.items():
+            lst = postings.get(km)
+            if lst is None:
+                continue
+            for gj, cj in lst:
+                if gj == i:
+                    continue
+                if not stamped[gj]:
+                    stamped[gj] = True
+                    touched.append(gj)
+                inter[gj] += cj if cj < ci else ci
+                perc[gj] += ci
+                tr[gj] += cj
+        touched.sort()
+        for gj in touched:
+            rows.append(i)
+            cols.append(gj)
+            inter_out.append(inter[gj])
+            perc_out.append(perc[gj])
+            tr_out.append(tr[gj])
+            inter[gj] = perc[gj] = tr[gj] = 0
+            stamped[gj] = False
+
+    return ScoreCells(
+        np.asarray(rows, dtype=np.int32),
+        np.asarray(cols, dtype=np.int32),
+        np.asarray(inter_out, dtype=np.int64),
+        np.asarray(perc_out, dtype=np.int64),
+        np.asarray(tr_out, dtype=np.int64),
+    )
+
+
+def finalize_cells_reference(
+    cells: ScoreCells, kseq_lengths: np.ndarray, k: int
+) -> List[Tuple[int, int, np.float32, np.float32, np.float32]]:
+    """Per-cell f32 finalization, scalar loop in library.cpp:493-512 order.
+
+    Returns ``[(row, col, score, perc, tr_perc), ...]`` for score > 0
+    cells, in (row, col) order — the per-row column order of the native
+    kernel's colored-cell walk does not affect any downstream result (all
+    consumers are order-independent maxima / keyed dicts), so the sorted
+    order is used for determinism.
+    """
+    order = np.lexsort((cells.col, cells.row))
+    rows = cells.row[order].tolist()
+    cols = cells.col[order].tolist()
+    inters = cells.intersection[order].tolist()
+    percs = cells.perc_cnt[order].tolist()
+    trs = cells.tr_perc_cnt[order].tolist()
+    lengths = np.asarray(kseq_lengths).tolist()
+
+    f32 = np.float32
+    thr = f32(1.0) / (f32(2.0) * f32(k))
+    out = []
+    for i, j, inter, perc_cnt, tr_cnt in zip(rows, cols, inters, percs, trs):
+        a = lengths[i]
+        b = lengths[j]
+        union = a + b - inter  # exact integer union (library.cpp:494-496)
+        perc = f32(perc_cnt) / f32(a)
+        tr_perc = f32(tr_cnt) / f32(b)
+        if perc >= thr or tr_perc >= thr:  # library.cpp:499-502
+            score = f32(inter) / f32(union)  # the single divide, :501
+            if score > 0:  # only score > 0 cells stored, :505-512
+                out.append((i, j, score, perc, tr_perc))
+    return out
+
+
+def build_network_reference(
+    fcells: List[Tuple[int, int, np.float32, np.float32, np.float32]],
+    seq_genome,
+    n_genomes: int,
+) -> Tuple[List[Tuple[int, int, float]], Dict]:
+    """Pangenes.java:60-183 transcription: per-genome maxima + two passes.
+
+    Returns (canonical undirected edge list sorted by (a, b), stats).
+    The reference adds inter edges bidirectionally and dedups on write
+    with ``key <= node`` (PangeneNet.java:167-174); the canonical dict
+    here is that dedup.  Java's HashMap write order is implementation-
+    defined, so the canonical sorted order — the same one the production
+    writer uses — is the portable choice.
+    """
+    seq_genome = list(seq_genome)
+    f32 = np.float32
+    zero = f32(0.0)
+    one = f32(1.0)
+
+    # group cell indices by the row's genome (the reference computes each
+    # genome's scoresPart separately, Pangenes.java:66)
+    by_genome: List[List[int]] = [[] for _ in range(n_genomes)]
+    for idx, (i, _, _, _, _) in enumerate(fcells):
+        by_genome[seq_genome[i]].append(idx)
+
+    edges: Dict[Tuple[int, int], float] = {}
+
+    def add_edge(a: int, b: int, s) -> None:
+        if a > b:
+            a, b = b, a
+        edges.setdefault((a, b), float(s))
+
+    n_inter = 0
+    n_intra = 0
+    for g in range(n_genomes):
+        part = by_genome[g]
+
+        # running maxima as the native kernel keeps them
+        # (library.cpp:513-515): row's best vs each genome, and each
+        # column's best vs this genome's rows.
+        max_genome_score: Dict[Tuple[int, int], np.float32] = {}
+        col_max: Dict[int, np.float32] = {}
+        for idx in part:
+            i, j, s, _, _ = fcells[idx]
+            tg = seq_genome[j]
+            if s > max_genome_score.get((i, tg), zero):
+                max_genome_score[(i, tg)] = s
+            if s > col_max.get(j, zero):
+                col_max[j] = s
+
+        # pass 1: inter-genome BBH (Pangenes.java:98-128)
+        inter_max_score = [zero] * n_genomes  # max accepted score < 1.0
+        accepted: List[Tuple[int, int, np.float32, int]] = []
+        for idx in part:
+            i, j, s, _, _ = fcells[idx]
+            sg = seq_genome[j]
+            if sg != g and s == max_genome_score[(i, sg)] and s == col_max[j]:
+                before = len(edges)
+                add_edge(i, j, s)
+                if len(edges) > before:
+                    n_inter += 1
+                accepted.append((i, j, s, sg))
+                if s < one and s > inter_max_score[sg]:  # :116-118
+                    inter_max_score[sg] = s
+
+        # row thresholds (Pangenes.java:146-155): min over the row's
+        # accepted target genomes of that genome's inter_max_score.
+        row_threshold: Dict[int, np.float32] = {}
+        inf = f32(np.inf)
+        for i, j, s, sg in accepted:
+            if inter_max_score[sg] < row_threshold.get(i, inf):
+                row_threshold[i] = inter_max_score[sg]
+
+        # pass 2: intra-genome paralog edges (Pangenes.java:164-176)
+        for idx in part:
+            i, j, s, _, _ = fcells[idx]
+            if (
+                i < j
+                and seq_genome[j] == g
+                and s == max_genome_score.get((i, g), zero)
+                and s == max_genome_score.get((j, g), zero)
+                and s >= row_threshold.get(i, inf)
+            ):
+                before = len(edges)
+                add_edge(i, j, s)
+                if len(edges) > before:
+                    n_intra += 1
+
+    edge_list = [(a, b, w) for (a, b), w in sorted(edges.items())]
+    stats = {
+        "n_cells": len(fcells),
+        "n_inter_edges": n_inter,
+        "n_intra_edges": n_intra,
+    }
+    return edge_list, stats
+
+
+# --- clustering ------------------------------------------------------------
+#
+# netclu_ng.py runs on networkx, whose iteration orders decide the result
+# wherever edge betweenness ties: which edge Girvan-Newman removes first,
+# hence which split it finds.  What follows transcribes the networkx 3.x
+# code that netclu_ng.py reaches, each structure with the same insertion
+# history, so that every dict and set iterates in the same order:
+#
+# - nx.Graph: node -> {neighbour: None} in insertion order (Graph._node
+#   and Graph._adj grow together; an existing key keeps its place);
+# - G.subgraph(nodes): a view over the ROOT graph (a subgraph of a view is
+#   not chained) whose node filter is ``set(nodes present)``
+#   (filters.show_nodes); it iterates that set when it holds fewer than
+#   half the root's nodes, else the root's nodes in order, filtered
+#   (coreviews.FilterAtlas.__iter__); a node's neighbours iterate in the
+#   root's adjacency order, filtered;
+# - Graph.copy(): rebuilt by an adjacency walk (add_nodes_from, then
+#   add_edges_from over u, then v), which reorders adjacency.
+#   girvan_newman's .to_undirected() walks the copy once more, which
+#   rebuilds a walked graph as it is, and removes self-loops, which pnet
+#   never holds (netclu_ng.py adds none): neither is transcribed;
+# - connected_components: _plain_bfs over ``for v in G`` order;
+# - edge_betweenness_centrality: Brandes with BFS, unweighted, normalized
+#   by 1/(n(n-1)), the dict keyed by nodes then G.edges(), and max() of it
+#   keeping the first of equal values.
+
+
+class _Graph:
+    """nx.Graph's storage: ``adj[u]`` is u's neighbour dict."""
+
+    def __init__(self):
+        self.adj: Dict[int, Dict[int, None]] = {}
+
+    def add_node(self, n) -> None:
+        if n not in self.adj:
+            self.adj[n] = {}
+
+    def add_edge(self, u, v) -> None:
+        self.add_node(u)
+        self.add_node(v)
+        self.adj[u][v] = None
+        self.adj[v][u] = None
+
+    def remove_edge(self, u, v) -> None:
+        del self.adj[u][v]
+        if u != v:
+            del self.adj[v][u]
+
+    def edges(self):
+        # EdgeView.__iter__: each edge once, at its first endpoint
+        seen = {}
+        for n, nbrs in self.adj.items():
+            for nbr in nbrs:
+                if nbr not in seen:
+                    yield (n, nbr)
+            seen[n] = 1
+
+
+class _View:
+    """nx.subgraph_view(root, filter_node=show_nodes(nodes))."""
+
+    def __init__(self, root: _Graph, nodes: set):
+        self.root = root
+        self.nodes = nodes
+
+    def __contains__(self, n) -> bool:
+        return n in self.root.adj and n in self.nodes
+
+    def order(self) -> List[int]:
+        if 2 * len(self.nodes) < len(self.root.adj):
+            return [n for n in self.nodes if n in self.root.adj]
+        return [n for n in self.root.adj if n in self.nodes]
+
+    def neighbours(self, u) -> List[int]:
+        return [v for v in self.root.adj[u] if v in self.nodes]
+
+    def copy(self) -> _Graph:
+        g = _Graph()
+        for n in self.order():
+            g.add_node(n)
+        for u in self.order():
+            for v in self.neighbours(u):
+                g.add_edge(u, v)
+        return g
+
+
+def _subgraph(g, nodes) -> _View:
+    """Graph.subgraph: ``show_nodes(g.nbunch_iter(nodes))``."""
+    if isinstance(g, _View):
+        return _View(g.root, set(n for n in nodes if n in g))
+    return _View(g, set(n for n in nodes if n in g.adj))
+
+
+def _plain_bfs(g: _Graph, n: int, source) -> set:
+    adj = g.adj
+    seen = {source}
+    nextlevel = [source]
+    while nextlevel:
+        thislevel = nextlevel
+        nextlevel = []
+        for v in thislevel:
+            for w in adj[v]:
+                if w not in seen:
+                    seen.add(w)
+                    nextlevel.append(w)
+            if len(seen) == n:
+                return seen
+    return seen
+
+
+def _connected_components(g: _Graph):
+    seen = set()
+    n = len(g.adj)
+    for v in g.adj:
+        if v not in seen:
+            c = _plain_bfs(g, n - len(seen), v)
+            seen.update(c)
+            yield c
+
+
+def _single_source_shortest_path_basic(g: _Graph, s):
+    S = []
+    P = {}
+    for v in g.adj:
+        P[v] = []
+    sigma = dict.fromkeys(g.adj, 0.0)
+    D = {}
+    sigma[s] = 1.0
+    D[s] = 0
+    Q = deque([s])
+    while Q:
+        v = Q.popleft()
+        S.append(v)
+        Dv = D[v]
+        sigmav = sigma[v]
+        for w in g.adj[v]:
+            if w not in D:
+                Q.append(w)
+                D[w] = Dv + 1
+            if D[w] == Dv + 1:
+                sigma[w] += sigmav
+                P[w].append(v)
+    return S, P, sigma, D
+
+
+def _accumulate_edges(betweenness, S, P, sigma, s):
+    delta = dict.fromkeys(S, 0)
+    while S:
+        w = S.pop()
+        coeff = (1 + delta[w]) / sigma[w]
+        for v in P[w]:
+            c = sigma[v] * coeff
+            if (v, w) not in betweenness:
+                betweenness[(w, v)] += c
+            else:
+                betweenness[(v, w)] += c
+            delta[v] += c
+        if w != s:
+            betweenness[w] += delta[w]
+    return betweenness
+
+
+def _edge_betweenness_centrality(g: _Graph) -> dict:
+    betweenness = dict.fromkeys(g.adj, 0.0)
+    betweenness.update(dict.fromkeys(g.edges(), 0.0))
+    for s in g.adj:
+        S, P, sigma, _ = _single_source_shortest_path_basic(g, s)
+        betweenness = _accumulate_edges(betweenness, S, P, sigma, s)
+    for n in g.adj:
+        del betweenness[n]
+    n = len(g.adj)
+    if n >= 2:
+        scale = 1 / (n * (n - 1))
+        if scale != 1:
+            for v in betweenness:
+                betweenness[v] *= scale
+    return betweenness
+
+
+def _without_most_central_edges(g: _Graph):
+    original_num_components = sum(1 for _ in _connected_components(g))
+    num_new_components = original_num_components
+    while num_new_components <= original_num_components:
+        betweenness = _edge_betweenness_centrality(g)
+        edge = max(betweenness, key=betweenness.get)
+        g.remove_edge(*edge)
+        new_components = tuple(_connected_components(g))
+        num_new_components = len(new_components)
+    return new_components
+
+
+def _girvan_newman_first(view: _View):
+    """next(girvan_newman(view)): the components after the first split.
+    The view has an edge (netclu_ng.py splits only a component that holds
+    a collision, so two or more joined nodes), which networkx's branch
+    for an edgeless graph needs."""
+    return _without_most_central_edges(view.copy())
+
+
+def cluster_reference(edges, seq_genome, n_sequences: int):
+    """netclu_ng.py:41-175 transcription (the networkx calls it makes are
+    transcribed above), returning a
+    :class:`pandelos_tpu_torch.cluster.ClusterResult`."""
+    from pandelos_tpu_torch.cluster import ClusterResult
+
+    seq_genome = list(seq_genome)
+
+    # graph build in file order, self-loops add the node only
+    # (netclu_ng.py:43-56)
+    pnet = _Graph()
+    inodes = set()
+    for a, b, w in edges:
+        a, b = int(a), int(b)
+        if a not in inodes:
+            inodes.add(a)
+            pnet.add_node(a)
+        if (b not in inodes) and (a != b):
+            inodes.add(b)
+            pnet.add_node(b)
+        if a != b:
+            pnet.add_edge(a, b)
+            pnet.add_edge(b, a)
+
+    def has_edge(u, v) -> bool:
+        # has_edge on any subgraph view of pnet, for two nodes of that
+        # view, is has_edge on pnet: views keep every edge of the root
+        return v in pnet.adj.get(u, ())
+
+    def get_max_collision(coco) -> int:  # netclu_ng.py:79-96
+        collisions: Dict[int, List[int]] = {}
+        for s in coco:
+            collisions.setdefault(seq_genome[s], []).append(s)
+        max_k = 0
+        for v in collisions.values():
+            for s1 in v:
+                s_k = 0
+                for s2 in v:
+                    if s1 != s2 and not (
+                        has_edge(s1, s2) or has_edge(s2, s1)
+                    ):
+                        s_k += 1
+                if s_k > max_k:
+                    max_k = s_k
+        return max_k
+
+    def split_until_max_k(coco, g):  # netclu_ng.py:101-115
+        snet = _subgraph(g, coco)
+        coms = tuple(sorted(c) for c in _girvan_newman_first(snet))
+        rcoms = []
+        for com in coms:
+            if get_max_collision(com) > 0:
+                rcoms = rcoms + split_until_max_k(com, snet)
+            else:
+                rcoms.append(com)
+        return rcoms
+
+    remaining = set(range(n_sequences))
+    families: List[List[int]] = []
+    comp_distr: Dict[int, int] = {}
+    for coco in _connected_components(pnet):
+        comp_distr[len(coco)] = comp_distr.get(len(coco), 0) + 1
+        if get_max_collision(coco) > 0:
+            for com in split_until_max_k(coco, pnet):
+                families.append(sorted(int(x) for x in com))
+                remaining -= set(int(x) for x in com)
+        else:
+            families.append(sorted(int(x) for x in coco))
+            remaining -= set(int(x) for x in coco)
+
+    fam_distr: Dict[int, int] = {}
+    for fam in families:
+        fam_distr[len(fam)] = fam_distr.get(len(fam), 0) + 1
+
+    return ClusterResult(
+        families=families,
+        singletons=sorted(remaining),
+        component_size_distr=comp_distr,
+        family_size_distr=fam_distr,
+    )

@@ -2,18 +2,14 @@
 CPU: ``.net``/``.clus`` byte-identical to tests/golden/ (which every JAX
 backend reproduces, tests/test_golden.py) for ``xla`` (device BBH and the
 cells path), ``dense``, ``pallas`` and ``auto``, and ``cli run`` with
-them; ``reference`` still raises."""
+them; and ``reference``, the host-only transcription twin."""
 
 import filecmp
 import os
 
 import pytest
 
-from pandelos_tpu_torch.config import (
-    NotPortedError,
-    PipelineConfig,
-    resolve_backend,
-)
+from pandelos_tpu_torch.config import PipelineConfig, resolve_backend
 from pandelos_tpu_torch.pipeline import run_pipeline
 
 HERE = os.path.dirname(__file__)
@@ -76,16 +72,21 @@ def test_cli_run_backends(tmp_path, backend):
 
 
 def test_cli_reference_backend_is_not_ported(tmp_path, capsys):
+    """The reference backend, which earlier slices did not port, now
+    runs: ``cli run --backend reference`` and ``run_pipeline`` write the
+    golden output."""
     from pandelos_tpu_torch.cli import main
 
-    prefix = str(tmp_path / "s")
-    assert main(["run", CASES[0][1], prefix, "--device", "cpu",
-                 "--backend", "reference"]) == 2
-    assert "ROADMAP Queue 4 item 1" in capsys.readouterr().err
-    assert not os.path.exists(prefix + ".net")
-    with pytest.raises(NotPortedError, match="networkx"):
-        run_pipeline(CASES[0][1], prefix,
-                     PipelineConfig(backend="reference", device="cpu"))
+    for name, faa in CASES[:2]:
+        prefix = str(tmp_path / name)
+        assert main(["run", faa, prefix, "--device", "cpu",
+                     "--backend", "reference"]) == 0
+        assert '"n_families"' in capsys.readouterr().out
+        _same_as_golden(prefix, name)
+        res = run_pipeline(faa, prefix + "_api",
+                           PipelineConfig(backend="reference", device="cpu"))
+        _same_as_golden(prefix + "_api", name)
+        assert "device_bbh" not in res.stats["network"]
 
 
 @pytest.mark.parametrize("backend", ["xla", "dense", "auto"])

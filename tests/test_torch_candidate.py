@@ -109,8 +109,10 @@ def engines(request):
     perm_pad[:G] = perm
     perm_ext = np.concatenate([perm_pad, np.full(R, G, np.int32)])
     starts = np.arange(0, n_blocks * R, R, np.int32)
+    # the port's runner holds its index weakly (the index caches it):
+    # keep the index
     return dict(jpad=jpad, tpad=tpad, jr=jr, tr=tr, jsig=jsig, tsig=tsig,
-                perm_ext=perm_ext, starts=starts, R=R, jidx=jidx)
+                perm_ext=perm_ext, starts=starts, R=R, jidx=jidx, tidx=tidx)
 
 
 def test_padded_profiles_and_signatures_match_jax(engines):

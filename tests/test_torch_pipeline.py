@@ -2,7 +2,8 @@
 kernel, on the cells path and on every backend name, the shared index,
 the import boundary,
 device resolution, lane2's fallback for inputs it cannot pack, the work
-and memory models, and a raise for every path that is not ported yet."""
+and memory models, a run's device memory freed with its last reference,
+and a raise for every path that is not ported yet."""
 
 import dataclasses
 import filecmp
@@ -124,13 +125,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "for kw in ({}, {'join_kernel': 'lane'}, {'join_kernel': 'roll'},\n"
         "           {'device_bbh': False}, {'backend': 'xla'},\n"
         "           {'backend': 'xla', 'device_bbh': False},\n"
-        "           {'backend': 'dense'}):\n"
+        "           {'backend': 'dense'}, {'backend': 'reference'},\n"
+        f"           {{'profile_dir': {str(tmp_path / 'trace')!r}}}):\n"
         f"    run_pipeline({os.path.join(DATA, 'toy.faa')!r}, "
         f"{str(tmp_path / 'toy')!r}, PipelineConfig(device='cpu', **kw))\n"
         "    assert filecmp.cmp("
         f"{str(tmp_path / 'toy.net')!r}, "
         f"{os.path.join(GOLDEN, 'toy.net')!r}, shallow=False), kw\n"
         "import pandelos_tpu_torch.ops.pair_join, pandelos_tpu_torch.kernels\n"
+        "import pandelos_tpu_torch.cli, pandelos_tpu_torch.dictionaries\n"
+        "import pandelos_tpu_torch.bench.harness, pandelos_tpu_torch.io.gbk\n"
+        "import pandelos_tpu_torch.bench.quality, pandelos_tpu_torch.reference\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pandelos_tpu' or m.startswith('pandelos_tpu.')]\n"
         "assert not bad, bad\n"
@@ -176,22 +181,28 @@ OPTIONS = {
     "profile_dir": dict(profile_dir="trace"),
 }
 RUNS = {"backend_xla", "backend_dense", "backend_pallas", "backend_auto",
-        "join_kernel_lane", "join_kernel_roll", "device_bbh_off"}
+        "backend_reference", "join_kernel_lane", "join_kernel_roll",
+        "device_bbh_off", "profile_dir"}
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))
 def test_unported_option_raises(name, tmp_path):
-    """An option not ported raises NotPortedError naming its ROADMAP item
-    and writes nothing; the ported ones (RUNS) write the golden output,
-    which equals the JAX package's."""
+    """An option not ported (the multi-GPU ones) raises NotPortedError
+    naming its ROADMAP item and writes nothing; the ported ones (RUNS)
+    write the golden output, which equals the JAX package's."""
     prefix = str(tmp_path / "x")
     toy = os.path.join(DATA, "toy.faa")
+    opts = dict(OPTIONS[name])
+    if "profile_dir" in opts:
+        opts["profile_dir"] = str(tmp_path / opts["profile_dir"])
     if name in RUNS:
-        run_pipeline(toy, prefix, _cfg(**OPTIONS[name]))
-        # the JAX run takes the case's backend, else its pallas engine
+        run_pipeline(toy, prefix, _cfg(**opts))
+        # the JAX run takes the case's backend, else its pallas engine,
+        # and writes no trace
+        opts.pop("profile_dir", None)
         jax_run_pipeline(toy, prefix + "_jax", JaxConfig(
             row_block=16, col_block=128, candidate_cap=64,
-            **{"backend": "pallas", **OPTIONS[name]}))
+            **{"backend": "pallas", **opts}))
         for suffix in (".net", ".clus"):
             assert filecmp.cmp(prefix + suffix, prefix + "_jax" + suffix,
                                shallow=False), suffix
@@ -199,8 +210,8 @@ def test_unported_option_raises(name, tmp_path):
                                os.path.join(GOLDEN, "toy" + suffix),
                                shallow=False), suffix
         return
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        run_pipeline(toy, prefix, _cfg(**OPTIONS[name]))
+    with pytest.raises(NotPortedError, match="ROADMAP Queue 1 item 1"):
+        run_pipeline(toy, prefix, _cfg(**opts))
     assert not os.path.exists(prefix + ".net")
 
 
@@ -361,3 +372,36 @@ def test_memory_model_counts_the_selected_table():
     assert mm["join_table_bytes"] == 8 * mm["padded_genes"] * lane_depth(
         hidx) * 128
     assert not memory_model(hidx, _cfg(), budget_bytes=1.0)["fits"]
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_cells", "xla", "dense"])
+def test_run_frees_its_index_without_a_collection(backend):
+    """An index and the runner cached on it do not hold each other: with
+    the garbage collector off, the index of a run (and with it the
+    runner's device tensors) is freed once the caller's references are
+    gone.  A first run imports torch's lazily loaded modules, which leave
+    reference cycles of their own through the importing frame, so it
+    runs before the collector is switched off."""
+    import gc
+    import weakref
+
+    faa = os.path.join(GOLDEN, "synth_small.faa")
+    kw = ({"backend": "cuda", "device_bbh": False}
+          if backend == "cuda_cells" else {"backend": backend})
+    run_pipeline(faa, None, _cfg(**kw))
+    gc.collect()
+    gc.disable()
+    try:
+        cap = {}
+        res = run_pipeline(faa, None, _cfg(**kw), capture=cap)
+        assert res.stats["n_families"] > 0
+        index = weakref.ref(cap["index"])
+        if backend != "dense":
+            runner = weakref.ref(cap["runner"])
+            assert cap["runner"].index is cap["index"]
+        del cap, res
+        assert index() is None
+        if backend != "dense":
+            assert runner() is None
+    finally:
+        gc.enable()

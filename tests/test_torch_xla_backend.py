@@ -229,14 +229,17 @@ def test_xla_builds_no_join_table_and_no_bound_bits():
                        budget_bytes=1e12)
     assert mm["join_kernel"] is None
     assert mm["join_table_bytes"] == mm["bound_bits_bytes"] == 0
-    assert mm["join_temp_bytes"] > 0 and ref["join_temp_bytes"] == 0
+    # the in-scan join's work in place of the flat path's
+    assert mm["join_temp_bytes"] > 0 and ref["join_temp_bytes"] > 0
+    assert mm["join_temp_bytes"] != ref["join_temp_bytes"]
     # by default at the largest cap device BBH can reach
     assert mm["join_temp_bytes"] == memory_model(
         tidx, cfg, budget_bytes=1e12,
         cand_cap=tcand.MAX_CANDIDATE_CAP)["join_temp_bytes"]
     assert mm["total_bytes"] == (
         ref["total_bytes"] - ref["join_table_bytes"]
-        - ref["bound_bits_bytes"] + mm["join_temp_bytes"])
+        - ref["bound_bits_bytes"] - ref["join_temp_bytes"]
+        + mm["join_temp_bytes"])
     assert mm["fits"]
 
 
@@ -321,3 +324,82 @@ def test_memory_model_bounds_the_device_bbh_per_slot():
     per_slot = (seen[512] - seen[128]) / (rows * 384)
     bound = tcand._JOIN_SLOT_BYTES + tcand._BBH_SLOT_BYTES
     assert 0.8 * bound <= per_slot <= bound
+
+
+def test_memory_model_bounds_the_flat_path_per_slot():
+    """What the cuda backend's flat path allocates (every temporary
+    summed, as _Allocated counts) is within the memory model's bytes and
+    not loose by more than a fifth: per [rows, K] slot (the growth of a
+    device BBH run between two caps that no row overflows, whose pair
+    list is the same) and per flat pair slot (the flatten, the join
+    kernel's three outputs and the flat BBH, between pair lists of P and
+    2P and 4P slots)."""
+    from pandelos_tpu_torch.ops.net_device import (
+        _bbh_flat_local,
+        compute_network_device,
+    )
+
+    ds = _with_long_family(np.random.default_rng(1))
+    _, tidx = twin_indexes(ds, k=3)
+    R = 8
+    seen, caps = {}, set()
+    for K in (128, 512):
+        cfg = PipelineConfig(row_block=R, col_block=128, device="cpu",
+                             candidate_cap=K)
+        compute_network_device(tidx, cfg)  # build the cached runner first
+        cap = {}
+        with _Allocated() as a:
+            stats = compute_network_device(tidx, cfg, capture=cap)[1]
+        assert stats["candidate_cap_final"] == K
+        caps.add(stats["pair_cap"])
+        seen[K] = a.bytes
+    assert len(caps) == 1
+    rows = -(-tidx.n_sequences // R) * R
+    per_slot = (seen[512] - seen[128]) / (rows * 384)
+    bound = tcand._FLAT_BBH_SLOT_BYTES
+    assert 0.8 * bound <= per_slot <= bound
+
+    # per pair slot: the join's outputs as the kernel allocates them (its
+    # plain version's chunk temporaries are the CPU's, not the card's)
+    r = cap["runner"]
+    K = 128
+    grow, cand, counts = r.extract(cap["perm_ext"], cap["starts"], R,
+                                   r.w_pad, K, do_join=False,
+                                   from_T=cap["use_T"])
+    P = r.pair_capacity(counts.reshape(-1).numpy(), K)
+    want = r.flatten_join(grow, cand, counts, K, 4 * P)[2:5]
+    lens, zeros = r.col_lens, torch.zeros(r.G_pad, dtype=torch.int32)
+    got = {}
+    try:
+        for n in (P, 2 * P, 4 * P):
+            r.join = lambda pi, pj, n=n: tuple(x[:n].clone() for x in want)
+            with _Allocated() as a:
+                out = r.flatten_join(grow, cand, counts, K, n)
+                _bbh_flat_local(grow, cand, counts, *out, zeros, lens, zeros,
+                                tidx.n_genomes, 1 << 14)
+            got[n] = a.bytes
+    finally:
+        del r.join
+    bound = tcand._PAIR_SLOT_BYTES
+    for lo, hi in ((P, 2 * P), (2 * P, 4 * P)):
+        per_pair = (got[hi] - got[lo]) / (hi - lo)
+        assert 0.8 * bound <= per_pair <= bound
+
+
+def test_memory_model_counts_the_run_pair_list():
+    """The cuda model counts the flat pair list at the run's pair_cap
+    when given, and at its largest value for the cap otherwise."""
+    from pandelos_tpu_torch.ops.candidate import memory_model
+
+    ds = _with_long_family(np.random.default_rng(1))
+    _, tidx = twin_indexes(ds, k=3)
+    cfg = PipelineConfig(row_block=8, col_block=128, device="cpu")
+    rows = -(-tidx.n_sequences // 8) * 8
+    at = {pc: memory_model(tidx, cfg, budget_bytes=1e12, cand_cap=64,
+                           pair_cap=pc)["join_temp_bytes"]
+          for pc in (128, 256, None)}
+    assert at[256] - at[128] == 128 * tcand._PAIR_SLOT_BYTES
+    assert at[128] == (tcand._FLAT_BBH_SLOT_BYTES * rows * 64
+                       + tcand._PAIR_SLOT_BYTES * 128)
+    assert at[None] - at[128] == tcand._PAIR_SLOT_BYTES * (
+        tcand._next_pow2(rows * 64) - 128)
