@@ -29,13 +29,23 @@ Then the multi-device paths on the one card: mycoplasma64 over four
 shards on ``cuda:0`` (the ``devices=`` placement, the counterpart of the
 JAX tests' virtual devices): the replicated engine (lane2, device BBH),
 the ring with device BBH, the ring's cells path with the lane kernel,
-and ``"xla"``; each must run four shards, launch its join kernel once a
-shard (none under xla) and allocate no more than four times the memory
-model's per-device bytes, and the join kernel of each ``"cuda"`` run is
-held bit for bit against its plain version on the first shard's pair
-list (the ring's step-major one too); it prints its per-shard pairs.  Last, ``cli run
---distributed`` in a child process with PANDELOS_NUM_PROCS=1 (an NCCL
-group of one) on mycoplasma16.
+``"xla"`` and the roll join (phase 22); each must run four shards,
+launch its join kernel once a shard (none under xla) and allocate no
+more than four times the memory model's per-device bytes, and the join
+kernel of each ``"cuda"`` run is held bit for bit against its plain
+version on the first shard's pair list (the ring's step-major one too);
+it prints its per-shard pairs.  Then ``cli run --distributed`` in a
+child process with PANDELOS_NUM_PROCS=1 (an NCCL group of one) on
+mycoplasma16.  Last (phase 23), the option combinations that the JAX
+package runs otherwise than asked, on mycoplasma16 (four shards where
+the case has them): ``ring_extract`` under ``"xla"`` with device BBH and
+on one shard under ``"cuda"`` (the replicated engine), the ring's cells
+path under ``"xla"`` (the lane2 kernel, once a shard) and ``"dense"``
+with the ring over four shards (the dense scorer), each with exactly the
+launches its case implies; the lane2 kernel of cases b and c is held bit
+for bit against its plain version on the first shard's pair list, and
+the candidate engine's cases allocate no more than their shards times
+the memory model's bytes.
 Every output must be byte-identical to its committed golden (the derived
 input's two runs to each other; the examples' generated ``.faa`` too).
 Phases print one line each; a ``kernels`` JSON line comes before the
@@ -560,13 +570,14 @@ SHARDED = {
     19: ("_4ring_cells_lane", dict(ring_extract=True, device_bbh=False,
                                     join_kernel="lane")),
     20: ("_4xla", dict(backend="xla")),
+    22: ("_4roll", dict(join_kernel="roll")),
 }
 N_SHARDS = 4
 
 
 def sharded_phases(dev, outdir):
-    """Phases 17-20: mycoplasma64 at full size over four shards on the
-    card.  Each must write the goldens, run four shards (the kernel of
+    """Phases 17-20 and 22: mycoplasma64 at full size over four shards on
+    the card.  Each must write the goldens, run four shards (the kernel of
     its path launched once a shard, none under xla), and allocate no
     more than the memory model's per-device bytes times the four shards
     on the card (an upper bound: the shards share the replicated
@@ -640,6 +651,98 @@ def sharded_phases(dev, outdir):
                 f"device: ring {mm['ring_bytes_per_device'] / 1e9:.2f} GB, "
                 f"replicated {rep['replicated_bytes_per_device'] / 1e9:.2f}"
                 f" GB")
+        del cap, res
+        torch.cuda.empty_cache()
+
+
+# phase 23: option combinations that the JAX package runs otherwise than
+# asked, as it runs them: (label, config, shards, launches, the device
+# BBH's ring_extract (None: the cells path, which does not report it),
+# the memory model's ring argument for the engine that runs (None: the
+# dense scorer, which the model does not cover))
+COMBINATIONS = (
+    ("a: xla + ring, 4 shards, device BBH: the replicated xla engine",
+     dict(backend="xla", ring_extract=True, device_bbh=True), N_SHARDS, {},
+     False, False),
+    ("b: cuda + ring, one shard, device BBH: the replicated engine",
+     dict(ring_extract=True, n_devices=1, device_bbh=True), None,
+     {"lane2": 1}, False, False),
+    ("c: xla + ring, 4 shards, cells path: the ring with the lane2 kernel",
+     dict(backend="xla", ring_extract=True, device_bbh=False), N_SHARDS,
+     {"lane2": N_SHARDS}, None, True),
+    ("e: dense + ring, 4 shards: the dense scorer",
+     dict(backend="dense", ring_extract=True), N_SHARDS, {}, None, None),
+)
+
+
+def combination_phase(dev, outdir):
+    """Phase 23: the combinations of COMBINATIONS on mycoplasma16, four
+    shards on the card where the case has them: each .net/.clus
+    byte-identical to phase 7's (the preset's goldens), with exactly the
+    launches the case implies and the ring_extract it reports; the
+    kernel a case launches is held bit for bit against its plain version
+    on the first shard's pair list, and a case on the candidate engine
+    allocates no more than its shards times the memory model's bytes."""
+    import torch
+
+    from pandelos_tpu_torch.config import PipelineConfig
+    from pandelos_tpu_torch.ops.candidate import memory_model
+
+    name = PRESETS[0]
+    for i, (label, cfg, n_shards, want, ring, model_ring) in enumerate(
+            COMBINATIONS):
+        devices = None
+        if n_shards:
+            cfg = dict(cfg, n_devices=n_shards)
+            devices = [dev] * n_shards
+        cap = {}
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        res, wall, _ = run(name, outdir, capture=cap, tag=f"_combo{i}",
+                           devices=devices, **cfg)
+        n = launches()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        full = {k: want.get(k, 0) for k in JOINS}
+        if n != full:
+            raise AssertionError(f"phase 23 {label}: launches {n}, want "
+                                 f"{full}")
+        net = res.stats["network"]
+        if net.get("ring_extract") != ring:
+            raise AssertionError(f"phase 23 {label}: ring_extract "
+                                 f"{net.get('ring_extract')}, want {ring}")
+        pairs = cap.get("pairs_per_shard")
+        if model_ring is not None and len(pairs) != (n_shards or 1):
+            raise AssertionError(f"phase 23 {label}: {len(pairs)} shards "
+                                 f"ran")
+        log(23, f"{name} {label} ({cfg}): .net/.clus byte-identical to "
+            f"phase 7's; launches {n}; ring_extract {net.get('ring_extract')}"
+            f", n_devices {net.get('n_devices')}; wall {wall:.2f}s; "
+            f"phase_times " + json.dumps(
+                {k: round(v, 4) for k, v in res.phase_times.items()}))
+        if want:
+            check_captured(next(iter(want)), cap, f"phase 23 {label[:1]} "
+                           f"shard 0", 23)
+        if model_ring is not None:
+            config = PipelineConfig(**{"backend": "cuda", **cfg})
+            K = net.get("candidate_cap_final", config.candidate_cap)
+            pair_cap = net.get("pair_cap", cap.get("pair_cap"))
+            mm = memory_model(cap["runner"].index, config, device=dev,
+                              cand_cap=K, pair_cap=pair_cap,
+                              ring=model_ring)
+            bound = (n_shards or 1) * mm["total_bytes"]
+            if peak > bound:
+                raise AssertionError(
+                    f"phase 23 {label}: {peak} bytes allocated past "
+                    f"{n_shards or 1} x the memory model's "
+                    f"{mm['total_bytes']}")
+            log(23, f"{label[:1]}: pairs per shard {list(map(int, pairs))}; "
+                f"peak device memory {peak / 1e9:.3f} GB over the "
+                f"{held / 1e9:.2f} GB held; memory model (ring "
+                f"{model_ring}, K {K}, pair_cap {pair_cap}) "
+                f"{mm['total_bytes'] / 1e9:.3f} GB a device (x"
+                f"{n_shards or 1} = {bound / 1e9:.3f} GB)")
         del cap, res
         torch.cuda.empty_cache()
 
@@ -1102,15 +1205,19 @@ def main() -> int:
             f".net/.clus byte-identical to tests/golden; edges "
             f"{len(res.edges)}, families {res.stats['n_families']}; wall "
             f"{time.monotonic() - t:.2f}s")
-        # 17-20. four shards on the one card (the devices= placement, the
-        # counterpart of JAX's virtual devices): the replicated engine,
+        # 17-20, 22. four shards on the one card (the devices= placement,
+        # the counterpart of JAX's virtual devices): the replicated engine,
         # the ring with device BBH, the ring's cells path with the lane
-        # kernel, and xla; each shard runs its own rows and the collectives
-        # merge them
+        # kernel, xla, and the roll join; each shard runs its own rows and
+        # the collectives merge them
         sharded_phases(dev, outdir)
 
         # 21. --distributed in a process of its own: an NCCL group of one
         distributed_phase(outdir)
+
+        # 23. the option combinations that the JAX package runs otherwise
+        # than asked, run as it runs them
+        combination_phase(dev, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
 

@@ -15,6 +15,8 @@ commands, with the same arguments, stdout JSON and exit codes.
     python -m pandelos_tpu_torch.cli gbk2faa gbk_dir out.faa
     python -m pandelos_tpu_torch.cli synth preset out.faa
     python -m pandelos_tpu_torch.cli examples workdir [--presets a,b]
+    python -m pandelos_tpu_torch.cli refcheck input.faa [--k K]
+        (cells vs the reference's own C++ kernel; PANDELOS_REF_ROOT)
 
 Every command that runs the pipeline (``run``, ``complexity``, ``bench``,
 ``examples``, ``auto``) runs on the card unless ``--device cpu`` is given,
@@ -23,13 +25,16 @@ names (``auto`` is ``xla``, ``pallas`` is ``cuda``); ``oracle`` and
 ``reference`` run on the host whatever ``--device`` says.  ``--devices
 N`` shards the candidate engine over N devices (cards 0..N-1, or N CPU
 shards with ``--device cpu``), ``--ring`` shards its signatures too
-(backend ``cuda``, N >= 2), and ``--distributed`` joins the processes
+(backend ``cuda``, N >= 2; otherwise the replicated engine runs, as in
+the JAX package; ``dense``, ``oracle`` and ``reference`` ignore both),
+and ``--distributed`` joins the processes
 named by PANDELOS_COORDINATOR / PANDELOS_NUM_PROCS / PANDELOS_PROC_ID
 (NCCL on cards, gloo with ``--device cpu``; ``--devices`` is then the
 global shard count), prints the topology JSON to stderr and lets only
-the primary write outputs.  A bad combination (``--ring`` with one
-device or another backend, ``dense`` on several) exits 2.  ``check``
-and ``auto`` exit 1 when the networks differ.
+the primary write outputs.  More shards than cards exits 2.
+``refcheck`` runs on the host; it exits 2 when the reference tree is
+absent.  ``check``, ``auto`` and ``refcheck`` exit 1 when the networks
+(cells) differ.
 """
 
 from __future__ import annotations
@@ -72,8 +77,8 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
         "--ring",
         action="store_true",
         help="ring-sharded signatures over the devices (memory-scaling "
-        "mode, needs --devices >= 2 and the cuda backend; composes with "
-        "--device-bbh)",
+        "mode: the cuda backend over --devices >= 2; otherwise the "
+        "replicated engine; composes with --device-bbh)",
     )
     p.add_argument(
         "--report",
@@ -178,6 +183,14 @@ def main(argv=None) -> int:
     p_syn = sub.add_parser("synth", help="generate a synthetic dataset")
     p_syn.add_argument("preset", help="toy|salmonella7|escherichia10|xanthomonas14|mycoplasma64")
     p_syn.add_argument("output")
+
+    p_rc = sub.add_parser(
+        "refcheck",
+        help="bit-exact cell diff vs the reference's own compiled C++ "
+        "kernel (needs the reference tree; PANDELOS_REF_ROOT)",
+    )
+    p_rc.add_argument("input")
+    p_rc.add_argument("--k", type=int, default=None)
 
     p_ex = sub.add_parser(
         "examples",
@@ -339,6 +352,41 @@ def _command(args) -> int:
         write_faa(args.output, ds)
         print(json.dumps({"n_sequences": ds.n_sequences, "n_genomes": ds.n_genomes}))
         return 0
+
+    if args.cmd == "refcheck":
+        from pandelos_tpu_torch.index import build_index
+        from pandelos_tpu_torch.io.faa import read_faa
+        from pandelos_tpu_torch.ksel import select_k
+        from pandelos_tpu_torch.native.ref_oracle import (
+            our_cells_bits,
+            reference_available,
+            reference_cells,
+        )
+
+        if not reference_available():
+            print("error: reference tree not found (PANDELOS_REF_ROOT)",
+                  file=sys.stderr)
+            return 2
+        ds = read_faa(args.input)
+        k = args.k if args.k is not None else select_k(ds.sequences)
+        theirs = reference_cells(args.input, k)
+        ours = our_cells_bits(build_index(ds, k=k))
+        only_ours = len(set(ours) - set(theirs))
+        only_theirs = len(set(theirs) - set(ours))
+        bit_diffs = sum(
+            1 for xy in ours if xy in theirs and ours[xy] != theirs[xy]
+        )
+        report = {
+            "k": k,
+            "cells_ours": len(ours),
+            "cells_reference": len(theirs),
+            "only_ours": only_ours,
+            "only_reference": only_theirs,
+            "bit_diffs": bit_diffs,
+            "identical": not (only_ours or only_theirs or bit_diffs),
+        }
+        print(json.dumps(report, indent=2))
+        return 0 if report["identical"] else 1
 
     if args.cmd == "examples":
         # the reference's example runner (example/run_examples.sh:3-13):

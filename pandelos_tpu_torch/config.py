@@ -24,11 +24,17 @@ package reads (its ``mesh_axis`` is left out), plus ``device``.  Backends
   change it.
 
 ``n_devices`` shards the candidate engine's row blocks (backends
-``"cuda"`` and ``"xla"``) over that many devices, or processes under
-``torch.distributed`` (:mod:`pandelos_tpu_torch.parallel`);
-``ring_extract`` (backend ``"cuda"``, two shards or more) shards the
-signatures too and rotates them (``ops/ring.py``).  :func:`check_ported`
-rejects the combinations the JAX package runs otherwise than asked.
+``"cuda"`` and ``"xla"``; ``"dense"`` and the host backends ignore it)
+over that many devices, or processes under ``torch.distributed``
+(:mod:`pandelos_tpu_torch.parallel`).  ``ring_extract`` shards the
+signatures too and rotates them (``ops/ring.py``) where the JAX package
+does: the device BBH takes the ring under backend ``"cuda"`` over two
+shards or more and the replicated engine otherwise; the cells path
+(``device_bbh=False``) takes it under ``"cuda"`` and ``"xla"`` alike
+(with the join kernel) and raises ValueError on one shard; ``"dense"``,
+``"oracle"`` and ``"reference"`` ignore it.  Every option combination
+runs what the JAX package runs; :func:`check_ported` rejects only
+unknown option values.
 """
 
 from __future__ import annotations
@@ -83,8 +89,9 @@ class PipelineConfig:
     join_kernel: str = "lane2"
     # Ring-sharded extraction (ops/ring.py): signatures sharded over the
     # devices and rotated instead of replicated, the memory-scaling mode
-    # for inputs whose replicated signatures do not fit one card.  Needs
-    # backend "cuda" and two shards or more; the cells are the same.
+    # for inputs whose replicated signatures do not fit one card; the
+    # cells are the same.  Taken where ring_engaged() says (device BBH)
+    # and by the cells path of "cuda" and "xla" (two shards or more).
     ring_extract: bool = False
 
     # --- parallelism
@@ -136,31 +143,25 @@ def resolve_backend(backend: str) -> str:
     return _ALIASES.get(backend, backend)
 
 
-def check_ported(config: PipelineConfig) -> None:
-    """Raise ValueError for an unknown option and for the combinations
-    the JAX package would run otherwise than asked (it runs the
-    replicated engine for ``ring_extract`` under backend ``"xla"``, and
-    one device under ``"dense"``): ``ring_extract`` needs backend
-    ``"cuda"`` and two shards or more, and ``"dense"`` one shard."""
-    from pandelos_tpu_torch.parallel.shards import resolve_n_devices
+def ring_engaged(config: PipelineConfig, n_shards: int) -> bool:
+    """Whether the device BBH runs the ring: ``ring_extract`` under
+    backend ``"cuda"`` over two shards or more, else the replicated
+    engine (the JAX package's ``use_ring``, ``ops/net_device.py``)."""
+    return (bool(config.ring_extract)
+            and resolve_backend(config.backend) == "cuda"
+            and n_shards >= 2)
 
+
+def check_ported(config: PipelineConfig) -> None:
+    """Raise ValueError for an unknown backend, ``join_kernel`` or
+    ``matmul_dtype``, as the JAX package does.  Every combination of
+    known values runs; the engines that take ``ring_extract`` and
+    ``n_devices`` decide, as the JAX package's do, whether those apply
+    (see the module docstring)."""
     if config.backend not in BACKENDS:
         raise ValueError(f"unknown backend: {config.backend}")
-    b = resolve_backend(config.backend)
-    if config.ring_extract:
-        if b != "cuda":
-            raise ValueError(
-                f"ring_extract runs on the cuda (pallas) backend only, not "
-                f"{config.backend!r}")
-        if resolve_n_devices(config) < 2:
-            raise ValueError(
-                "ring extraction needs a multi-device mesh (n_devices >= 2)")
-    if b in ("oracle", "reference"):
+    if resolve_backend(config.backend) in ("oracle", "reference"):
         return
-    if b == "dense" and resolve_n_devices(config) > 1:
-        raise ValueError(
-            f"the dense backend runs on one device, not n_devices="
-            f"{resolve_n_devices(config)}")
     if config.join_kernel not in JOIN_KERNELS:
         raise ValueError(
             f"unknown join_kernel {config.join_kernel!r}: one of "

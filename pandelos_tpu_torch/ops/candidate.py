@@ -51,7 +51,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pandelos_tpu_torch.config import PipelineConfig, resolve_backend
+from pandelos_tpu_torch.config import (
+    PipelineConfig,
+    resolve_backend,
+    ring_engaged,
+)
 from pandelos_tpu_torch.device import (
     configure_numerics,
     mm_f32,
@@ -784,7 +788,9 @@ def memory_model(
     padded profiles, the table of the join kernel the run takes (packed
     lane2 [G_pad, D*128], unpacked lane [G_pad, 2*D*128] or pair [G_pad,
     2W], each its own allocation), the bound-bit matrix and its transpose
-    (one shard only), the extraction workspace, and what the candidate
+    (one shard only), the extraction workspace (or, where larger, the
+    lane table builder's temporaries, ``lane_join.build_temp_bytes``: the
+    table is built when no workspace is held), and what the candidate
     work allocates over a shard's rows at ``cand_cap``: by default the
     largest cap the run can reach, ``MAX_CANDIDATE_CAP`` with device BBH
     and ``config.candidate_cap`` without.  Backend ``"xla"`` builds no
@@ -796,13 +802,15 @@ def memory_model(
     its largest value at ``cand_cap`` (every slot holding a pair, rounded
     up to a power of two as :meth:`Runner.pair_capacity` rounds).
 
-    Ring (``ring``, default ``config.ring_extract``; ``ops/ring.py``): the
+    Ring (``ring``, default as the device BBH decides,
+    :func:`~pandelos_tpu_torch.config.ring_engaged`; ``ops/ring.py``): the
     signatures of the shard's own gene range, the column shard it holds
     and that shard's presence ([G_pad / n, B] bf16 each), its rows'
     masses and presence; the candidate lists of every ring step (a shard
     sees each of its rows once a step, so n times its rows, [n, S, R, K]
     int32) and the flat path over those virtual rows; profiles and join
-    table replicated as above."""
+    table replicated as above, the join kernel's table under either
+    backend (the ring's cells path joins with it under ``"xla"`` too)."""
     config = config or PipelineConfig()
     if budget_bytes is None:
         budget_bytes = float(
@@ -814,61 +822,70 @@ def memory_model(
     wm = work_model(index, config)
     if G == 0:
         return {"fits": True, "budget_bytes": budget_bytes, **wm}
-    from pandelos_tpu_torch.ops.lane_join import lane_depth
+    from pandelos_tpu_torch.ops.lane_join import build_temp_bytes, lane_depth
 
     n_dev, n_proc = _n_devices(config, n_devices)
-    ring = bool(config.ring_extract) if ring is None else ring
+    ring = ring_engaged(config, n_dev) if ring is None else ring
     _, _, W, G_pad, B, rows, rows_shard = _layout(index, config, n_dev)
+    # the replicated engine of backend "xla" joins in the scan; the ring
+    # joins with the join kernel under either backend
     in_scan = resolve_backend(config.backend) == "xla"
-    kernel = None if in_scan else join_kernel_for(index, config)
+    kernel = join_kernel_for(index, config)
     sig = 2 * 2 * G_pad * B  # bf16 masses + the permuted copy
     pres = 2 * rows_shard * B  # bf16 presence of the permuted copy
     Gc = -(-G_pad // n_dev)
     sig_ring = 3 * 2 * Gc * B + 2 * 2 * rows_shard * B
     profiles = 2 * 4 * G_pad * W  # ids + counts
-    join_table = {
-        None: 0,
+    table_ring = {
         "lane2": 4 * G_pad * lane_depth(index) * 128,
         "lane": 8 * G_pad * lane_depth(index) * 128,
         "roll": 8 * G_pad * W,
     }[kernel]
+    table_rep = 0 if in_scan else table_ring
     if cand_cap is None:
         cand_cap = config.candidate_cap if config.device_bbh is False \
             else max(config.candidate_cap, MAX_CANDIDATE_CAP)
 
-    def candidate_work(n_slots):
-        if in_scan:
+    def candidate_work(n_slots, scan):
+        if scan:
             return (join_slots_bytes(n_slots, W)
                     + _BBH_SLOT_BYTES * n_slots)
         pc = pair_cap if pair_cap is not None else _next_pow2(
             max(n_slots, _PAIR_BLOCK))
         return _FLAT_BBH_SLOT_BYTES * n_slots + _PAIR_SLOT_BYTES * pc
 
-    rep_temps = candidate_work(rows_shard * cand_cap)
+    rep_temps = candidate_work(rows_shard * cand_cap, in_scan)
     ring_slots = n_dev * rows_shard * cand_cap
     ring_temps = 4 * ring_slots + 4 * n_dev * rows_shard + candidate_work(
-        ring_slots)
+        ring_slots, False)
     t_bytes = (
         2 * rows * rows
         if not in_scan and t_mode_enabled(n_dev, n_proc, rows) else 0
     )
     workspace = 4 * _T_ROWS * rows + 3 * _MASK_ELEMS + 6 * 4 * (1 << 21)
-    rest = profiles + join_table + workspace
-    replicated_total = sig + pres + rest + rep_temps + t_bytes
-    ring_total = sig_ring + rest + ring_temps
+    # a lane table is built at the first join, when no extraction
+    # workspace is held: its builder's temporaries take the workspace's
+    # place where they are larger
+    build = build_temp_bytes(G_pad, W) if kernel in ("lane2", "lane") else 0
+    ws_rep = max(workspace, build if table_rep else 0)
+    ws_ring = max(workspace, build)
+    replicated_total = (sig + pres + profiles + ws_rep + table_rep
+                        + rep_temps + t_bytes)
+    ring_total = sig_ring + profiles + ws_ring + table_ring + ring_temps
     total = ring_total if ring else replicated_total
+    join_table = table_ring if ring else table_rep
     return {
         **wm,
         "budget_bytes": budget_bytes,
         "n_devices": n_dev,
         "ring": ring,
-        "join_kernel": kernel,
+        "join_kernel": kernel if join_table else None,
         "sig_bytes": int(sig_ring if ring else sig + pres),
         "profile_bytes": int(profiles),
         "join_table_bytes": int(join_table),
         "join_temp_bytes": int(ring_temps if ring else rep_temps),
         "bound_bits_bytes": int(0 if ring else t_bytes),
-        "workspace_bytes": int(workspace),
+        "workspace_bytes": int(ws_ring if ring else ws_rep),
         "total_bytes": int(total),
         "replicated_bytes_per_device": int(replicated_total),
         "ring_bytes_per_device": int(ring_total),
@@ -878,11 +895,13 @@ def memory_model(
     }
 
 
-def check_hbm_fit(index: KmerIndex, config, device, ring: bool = False,
+def check_hbm_fit(index: KmerIndex, config, device,
+                  ring: Optional[bool] = None,
                   n_devices: Optional[int] = None) -> None:
     """Fail fast with an actionable message when the engine's footprint
-    per device (``ring``: which engine the caller runs) exceeds the
-    card's memory, instead of an out-of-memory error mid-run.
+    per device (``ring``: which engine the caller runs; None: the device
+    BBH's gate, as in the JAX package) exceeds the card's memory,
+    instead of an out-of-memory error mid-run.
     ``PANDELOS_IGNORE_HBM_MODEL=1`` overrides (the model is analytic,
     not measured).  No check on the CPU (host RAM)."""
     if os.environ.get("PANDELOS_IGNORE_HBM_MODEL") == "1":
@@ -893,7 +912,7 @@ def check_hbm_fit(index: KmerIndex, config, device, ring: bool = False,
                       n_devices=n_devices)
     if mm["fits"]:
         return
-    if ring:
+    if mm["ring"]:
         mode = "the ring engine"
         hint = ("the replicated engine would fit "
                 f"(~{mm['replicated_bytes_per_device'] / 1e9:.1f}GB): drop "
@@ -1023,6 +1042,8 @@ def compute_cells_candidate(
     configure_numerics()
 
     use_kernel = resolve_backend(config.backend) == "cuda"
+    # this engine is replicated whatever ring_extract says: judge its
+    # bytes (the JAX package's check here takes the device BBH's gate)
     check_hbm_fit(index, config, shards.devices[0], ring=False,
                   n_devices=shards.n)
     row_block = min(config.row_block, _round_up(G, 8))

@@ -39,6 +39,9 @@ _EMPTY = -256
 # packed entries: id << 8 | count needs count < 256 and id < 2^23
 _PACK_COUNT_LIMIT = 1 << 8
 _PACK_ID_LIMIT = 1 << 23
+# the lane table builder's row chunk: its int32 [rows, W, 128] running
+# count stays under this
+_BUILD_CHUNK_BYTES = 1 << 28
 
 
 def lane_depths(index) -> np.ndarray:
@@ -72,7 +75,7 @@ def lane_depth(index) -> int:
 
 def pack_lane_device_core(
     ids: torch.Tensor, counts: torch.Tensor, D: int, packed: bool = True,
-    chunk_bytes: int = 1 << 28,
+    chunk_bytes: int = _BUILD_CHUNK_BYTES,
 ) -> torch.Tensor:
     """[G_pad, W] padded profiles (``pad_profiles`` layout: id-sorted,
     left-packed, count 0 marks padding) -> a lane table: with ``packed``
@@ -114,7 +117,7 @@ def pack_lane_device_core(
         valid = cnc > 0
         lane = idc & (_LANE - 1)
         onehot = (lane[:, :, None] == lanes) & valid[:, :, None]
-        cum = onehot.to(torch.int32).cumsum(1)
+        cum = onehot.cumsum(1, dtype=torch.int32)
         depth = cum.gather(2, lane[..., None].long())[..., 0] - 1
         pos = torch.where(valid, (depth * _LANE + lane).long(), dump)
         if packed:
@@ -128,6 +131,17 @@ def pack_lane_device_core(
             blk.scatter_(1, pos, vals)
             out[r0:r0 + C, h * WL:(h + 1) * WL] = blk[:, :WL]
     return out
+
+
+def build_temp_bytes(G_pad: int, W: int,
+                     chunk_bytes: int = _BUILD_CHUNK_BYTES) -> int:
+    """Device bytes that :func:`pack_lane_device_core` holds besides
+    its table, at most: a row chunk's [rows, W, 128] one-hot (bool), its
+    int32 cast and int32 running count (9 bytes an element), and one
+    byte an element more for the chunk's [rows, W] temporaries and its
+    scatter block."""
+    rc = max(1, min(G_pad, chunk_bytes // max(1, W * _LANE * 4)))
+    return 10 * rc * W * _LANE
 
 
 def _lane_plain(slot, dg, a_idx, b_idx, pair_chunk):

@@ -43,6 +43,7 @@ from pandelos_tpu_torch.config import (
     PipelineConfig,
     check_ported,
     resolve_backend,
+    ring_engaged,
 )
 from pandelos_tpu_torch.device import configure_numerics, resolve_device
 from pandelos_tpu_torch.index import KmerIndex
@@ -362,9 +363,11 @@ def compute_network_device(
     Extraction runs with ``upper_only=False`` (each cell on both its
     rows) so the per-row maxima are complete; on candidate-cap overflow
     the whole extraction reruns at the next power-of-two cap.  With
-    ``config.ring_extract`` (backend ``"cuda"``, two shards or more) the
-    extraction shards and rotates the signatures (``ops/ring.py``) and
-    the BBH takes its step-axis outputs.
+    ``config.ring_extract`` under backend ``"cuda"`` over two shards or
+    more (:func:`~pandelos_tpu_torch.config.ring_engaged`) the extraction
+    shards and rotates the signatures (``ops/ring.py``) and the BBH takes
+    its step-axis outputs; otherwise the replicated engine runs, as in
+    the JAX package, and ``stats["ring_extract"]`` says which ran.
 
     Backend ``"cuda"`` joins each shard's flat pair list with its join
     kernel; backend ``"xla"`` joins inside the extraction (at the whole
@@ -388,10 +391,9 @@ def compute_network_device(
     shards = resolve_shards(config, device, devices)
     dev = shards.devices[0]
     configure_numerics()
-    use_ring = bool(config.ring_extract)
-    if use_ring and shards.n < 2:
-        raise ValueError(
-            "ring extraction needs a multi-device mesh (n_devices >= 2)")
+    # ring_extract under another backend or on one shard: the replicated
+    # engine, as in the JAX package
+    use_ring = ring_engaged(config, shards.n)
 
     _trace = os.environ.get("PT_TIMING") == "1"
     _t0 = time.monotonic()

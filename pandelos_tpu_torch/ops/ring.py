@@ -134,9 +134,11 @@ def compute_cells_ring(
     padded gene count they divide; cells equal
     :func:`~pandelos_tpu_torch.ops.candidate.compute_cells_candidate`'s.
     Each shard joins its own pair list (step-major) with
-    ``config.join_kernel``; rows past the candidate cap take the exact
-    host walk.  ``capture`` receives what ``compute_cells_candidate``'s
-    does, and every shard's pair total."""
+    ``config.join_kernel``, under backend ``"xla"`` too, as the JAX
+    package's ring joins with its runner's kernel whatever the backend;
+    rows past the candidate cap take the exact host walk.  ``capture``
+    receives what ``compute_cells_candidate``'s does, and every shard's
+    pair total."""
     from pandelos_tpu_torch.ops.candidate import (
         _host_fallback_rows,
         _mirrored,

@@ -51,9 +51,12 @@ def compute_cells(
     devices=None,
 ) -> ScoreCells:
     """The valid cells of the index on the host, dispatched as in the JAX
-    package: the candidate engine's cells path for backends ``"cuda"``
-    and ``"xla"`` (its ring form with ``config.ring_extract``), the
-    dense scorer for ``"dense"``, the posting walk for ``"oracle"``.
+    package: the posting walk for ``"oracle"`` and ``"reference"`` and
+    the dense scorer for ``"dense"`` (both whatever ``ring_extract`` and
+    ``n_devices`` say), the candidate engine's cells path for backends
+    ``"cuda"`` and ``"xla"`` (its ring form with ``config.ring_extract``,
+    which joins with the join kernel under either backend and needs two
+    shards or more).
     ``devices``: see :func:`run_pipeline`."""
     backend = resolve_backend(config.backend)
     if backend in ("oracle", "reference"):

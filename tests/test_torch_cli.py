@@ -241,19 +241,40 @@ def test_multi_device_flags_exit_2(tmp_path, capsys, monkeypatch, flag):
                            shallow=False), suffix
 
 
-def test_bad_multi_device_flags_exit_2(tmp_path, capsys):
-    """--ring on one device or another backend, and dense on two, exit 2
-    naming the reason; nothing is written."""
+@pytest.mark.parametrize("flags", [
+    ["--ring"], ["--ring", "--devices", "2", "--backend", "xla"],
+    ["--devices", "2", "--backend", "dense"]],
+    ids=["ring_one_device", "ring_xla", "dense_two_devices"])
+def test_multi_device_flags_run_as_the_jax_package_runs_them(
+        tmp_path, capsys, flags):
+    """The flags the JAX package runs otherwise than asked run as it runs
+    them and write the goldens: --ring on one device or under xla runs
+    the replicated engine; dense ignores --devices."""
     prefix = str(tmp_path / "x")
-    for flags, msg in ((["--ring"], "multi-device"),
-                       (["--ring", "--devices", "2", "--backend", "xla"],
-                        "cuda"),
-                       (["--devices", "2", "--backend", "dense"],
-                        "one device")):
-        assert port_main(["run", TOY, prefix, "--device", "cpu"]
-                         + flags) == 2
-        assert msg in capsys.readouterr().err
-        assert not os.path.exists(prefix + ".net")
+    assert port_main(["run", TOY, prefix, "--device", "cpu"] + flags
+                     + BLOCKS) == 0
+    stats = json.loads(capsys.readouterr().out)["stats"]["network"]
+    assert stats.get("ring_extract", False) is False
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, "toy" + suffix),
+                           shallow=False), suffix
+
+
+def test_bad_multi_device_flags_exit_2(tmp_path, capsys, monkeypatch):
+    """More shards than cards exits 2 naming the reason, writing
+    nothing."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    prefix = str(tmp_path / "x")
+    assert port_main(["run", TOY, prefix, "--devices", "2"] + BLOCKS) == 2
+    assert capsys.readouterr().err.strip() == (
+        "error: config requests n_devices=2 (2 in this process) but only 1 "
+        "CUDA device(s) exist; pass devices= to put several shards on one "
+        "card")
+    assert not os.path.exists(prefix + ".net")
 
 
 def test_device_commands_default_to_the_card(tmp_path, monkeypatch, capsys):
@@ -269,9 +290,3 @@ def test_device_commands_default_to_the_card(tmp_path, monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(["examples", str(tmp_path / "ex"), "--presets", "toy"])
     assert not os.path.exists(str(tmp_path / "x.net"))
-
-
-def test_refcheck_is_not_a_command(capsys):
-    with pytest.raises(SystemExit) as e:
-        port_main(["refcheck", SMALL])
-    assert e.value.code == 2

@@ -65,6 +65,29 @@ def test_lane_depths_and_packed_table_match_jax(
     np.testing.assert_array_equal(small.numpy(), want)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_table_build_temporaries_within_the_model(packed):
+    """What the lane table builder allocates besides its table, every
+    temporary of its one row chunk summed (no less than what it holds at
+    once), is within ``build_temp_bytes``, the memory model's count, and
+    not loose by more than half."""
+    from tests.test_torch_xla_backend import _Allocated
+
+    seed, n_genes, vocab, max_w, empty_last = PACK_CASES[2]
+    _, profiles = _profiles(seed, n_genes, vocab, max_w, empty_last)
+    idx = _FakeIndex(profiles)
+    G_pad = n_genes + 3
+    W = ((max_w + 127) // 128) * 128
+    ids, cnts = _padded_arrays(idx, G_pad, W, sentinel=vocab)
+    with _Allocated() as seen:
+        table = tlj.pack_lane_device_core(
+            torch.from_numpy(ids), torch.from_numpy(cnts),
+            tlj.lane_depth(idx), packed=packed)
+    temps = seen.bytes - table.numel() * 4
+    model = tlj.build_temp_bytes(G_pad, W)
+    assert 0.5 * model <= temps <= model
+
+
 @pytest.mark.parametrize("seed,n_genes,vocab,max_w", JOIN_CASES)
 def test_lane2_plain_matches_jax_kernel(seed, n_genes, vocab, max_w):
     rng = np.random.default_rng(seed)

@@ -4,8 +4,8 @@ the import boundary,
 device resolution, lane2's fallback for inputs it cannot pack, the work
 and memory models, a run's device memory freed with its last reference,
 every option of the JAX package's config (the multi-device ones on CPU
-shards), and a ValueError for the combinations the JAX package would run
-otherwise than asked."""
+shards), and every combination of them that the JAX package runs
+otherwise than asked, run as it runs them."""
 
 import dataclasses
 import filecmp
@@ -216,27 +216,81 @@ def test_unported_option_raises(name, tmp_path):
     raise AssertionError(f"{name}: every option runs")
 
 
-# combinations the JAX package would run otherwise than asked (its ring
-# under xla runs the replicated engine, its dense backend one device):
-# ValueError, nothing written
-BAD_COMBINATIONS = {
-    "ring_with_xla": (dict(backend="xla", ring_extract=True, n_devices=2),
-                      "cuda"),
-    "ring_with_one_device": (dict(ring_extract=True, n_devices=1),
-                             "multi-device"),
-    "ring_by_default": (dict(ring_extract=True), "multi-device"),
-    "dense_on_two_devices": (dict(backend="dense", n_devices=2),
-                             "one device"),
+# option combinations where ring_extract or n_devices does not apply as
+# asked: each runs what the JAX package runs (its pallas engine where
+# the port's is cuda, Pallas in interpret mode), with device_bbh set on
+# both sides (the JAX default turns it off on the CPU); row d raises in
+# both.  (options, whether the device BBH ran the ring (None: a path
+# that does not report it), and what the port's run captured: the join
+# kernel it launched and its number of shard pair lists, None where
+# the path has none)
+COMBINATIONS = {
+    # a: the ring needs backend pallas: the replicated xla engine
+    "a_xla_ring_two_devices": (
+        dict(backend="xla", ring_extract=True, n_devices=2,
+             device_bbh=True), False, (None, 2)),
+    # b: the ring needs two devices: the replicated engine on one
+    "b_ring_one_device": (
+        dict(ring_extract=True, n_devices=1, device_bbh=True), False,
+        ("lane2", 1)),
+    "b_ring_default_devices": (
+        dict(ring_extract=True, device_bbh=True), False, ("lane2", 1)),
+    # c: the cells path's ring under xla (joined with the join kernel;
+    # the replicated xla cells path joins in the scan, captures nothing)
+    "c_xla_ring_cells_path": (
+        dict(backend="xla", ring_extract=True, n_devices=2,
+             device_bbh=False), None, ("lane2", 2)),
+    # d: the cells path's ring on one device raises
+    "d_ring_cells_path_one_device": (
+        dict(ring_extract=True, n_devices=1, device_bbh=False),
+        "ring extraction needs a multi-device mesh (n_devices >= 2)", None),
+    # e: dense reads neither n_devices nor ring_extract
+    "e_dense_two_devices": (dict(backend="dense", n_devices=2), None,
+                            (None, None)),
+    "e_dense_ring_two_devices": (
+        dict(backend="dense", n_devices=2, ring_extract=True), None,
+        (None, None)),
+    # f: the host backends return before the ring
+    "f_oracle_ring": (dict(backend="oracle", ring_extract=True), None,
+                      (None, None)),
+    "f_reference_ring": (dict(backend="reference", ring_extract=True),
+                         None, (None, None)),
 }
 
 
-@pytest.mark.parametrize("name", sorted(BAD_COMBINATIONS))
-def test_multi_device_combinations_raise(name, tmp_path):
-    opts, msg = BAD_COMBINATIONS[name]
+@pytest.mark.parametrize("name", sorted(COMBINATIONS))
+def test_option_combinations_match_jax(name, tmp_path):
+    """Every combination writes the JAX package's .net/.clus (the toy
+    goldens) and reports the engine that ran as it does, and the port's
+    capture shows that engine ran; the one the JAX package refuses
+    raises the same ValueError, writing nothing."""
+    opts, want, engine = COMBINATIONS[name]
+    toy = os.path.join(DATA, "toy.faa")
     prefix = str(tmp_path / "x")
-    with pytest.raises(ValueError, match=msg):
-        run_pipeline(os.path.join(DATA, "toy.faa"), prefix, _cfg(**opts))
-    assert not os.path.exists(prefix + ".net")
+    jax_opts = dict(row_block=16, col_block=128, candidate_cap=64,
+                    **{"backend": "pallas", **opts})
+    if isinstance(want, str):
+        with pytest.raises(ValueError) as jax_err:
+            jax_run_pipeline(toy, prefix + "_jax", JaxConfig(**jax_opts))
+        with pytest.raises(ValueError) as err:
+            run_pipeline(toy, prefix, _cfg(**opts))
+        assert str(err.value) == str(jax_err.value) == want
+        assert not os.path.exists(prefix + ".net")
+        return
+    cap = {}
+    res = run_pipeline(toy, prefix, _cfg(**opts), capture=cap)
+    jres = jax_run_pipeline(toy, prefix + "_jax", JaxConfig(**jax_opts))
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix, prefix + "_jax" + suffix,
+                           shallow=False), suffix
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, "toy" + suffix),
+                           shallow=False), suffix
+    net, jnet = res.stats["network"], jres.stats["network"]
+    assert net.get("ring_extract") == jnet.get("ring_extract") == want
+    lists = cap.get("pairs_per_shard")
+    assert (cap.get("join_kernel"),
+            None if lists is None else len(lists)) == engine
 
 
 def test_unknown_backend_is_an_error():
@@ -396,6 +450,83 @@ def test_memory_model_counts_the_selected_table():
     assert mm["join_table_bytes"] == 8 * mm["padded_genes"] * lane_depth(
         hidx) * 128
     assert not memory_model(hidx, _cfg(), budget_bytes=1.0)["fits"]
+
+
+def test_memory_model_counts_the_ring_table_under_xla():
+    """The ring joins with the join kernel under backend "xla" too, so
+    its model counts the kernel's table there; the replicated xla engine
+    joins in the scan and counts none."""
+    from pandelos_tpu_torch.ops.candidate import memory_model
+    from pandelos_tpu_torch.ops.lane_join import lane_depth
+
+    idx = build_index(read_faa(os.path.join(GOLDEN, "synth_small.faa")), k=4)
+    cfg = _cfg(backend="xla", ring_extract=True, n_devices=2)
+    ring = memory_model(idx, cfg, budget_bytes=1e12, ring=True)
+    rep = memory_model(idx, cfg, budget_bytes=1e12, ring=False)
+    assert ring["ring"] and not rep["ring"]
+    assert ring["join_kernel"] == "lane2"
+    assert ring["join_table_bytes"] == 4 * ring["padded_genes"] * \
+        lane_depth(idx) * 128
+    assert rep["join_kernel"] is None and rep["join_table_bytes"] == 0
+    # by default the device BBH's gate: under xla the replicated engine
+    assert not memory_model(idx, cfg, budget_bytes=1e12)["ring"]
+
+
+def test_memory_model_counts_the_lane_table_build():
+    """A lane table is built when no extraction workspace is held: the
+    model counts its builder's temporaries in the workspace's place
+    where they are larger (wide profiles over many rows), for the run
+    that builds one: not for the roll join, nor for the replicated xla
+    engine, whose join is in the scan."""
+    from pandelos_tpu_torch.ops.candidate import memory_model
+    from pandelos_tpu_torch.ops.lane_join import build_temp_bytes
+
+    rng = np.random.default_rng(0)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    n = 1024
+    ds = FaaDataset(
+        sequences=["".join(rng.choice(aa, 700)) for _ in range(n)],
+        names=[f"p{i}" for i in range(n)], descriptions=["d"] * n,
+        seq_genome=[i % 4 for i in range(n)],
+        genome_names=[f"g{g}" for g in range(4)])
+    idx = build_index(ds, k=4)
+    base = {jk: memory_model(idx, _cfg(join_kernel=jk), budget_bytes=1e12)
+            for jk in ("lane2", "lane", "roll")}
+    build = build_temp_bytes(base["roll"]["padded_genes"],
+                             base["roll"]["padded_width"])
+    assert build > base["roll"]["workspace_bytes"]
+    assert base["lane2"]["workspace_bytes"] == build
+    assert base["lane"]["workspace_bytes"] == build
+    xla = _cfg(backend="xla", n_devices=2)
+    assert memory_model(idx, xla, budget_bytes=1e12, ring=False)[
+        "workspace_bytes"] == base["roll"]["workspace_bytes"]
+    assert memory_model(idx, xla, budget_bytes=1e12, ring=True)[
+        "workspace_bytes"] == build
+
+
+def test_cells_path_fit_check_judges_the_replicated_engine(monkeypatch):
+    """compute_cells_candidate runs the replicated engine whatever
+    ring_extract says, so its fail-fast memory check judges the
+    replicated bytes, not the ring's (smaller at scale, where the
+    signatures dominate)."""
+    from pandelos_tpu_torch.ops import candidate as tcand
+
+    idx = build_index(read_faa(os.path.join(GOLDEN, "synth_small.faa")), k=4)
+    cfg = _cfg(ring_extract=True, n_devices=2)
+    judged = []
+
+    def fit(index, config, device, ring=None, n_devices=None):
+        judged.append(tcand.memory_model(index, config, ring=ring,
+                                         n_devices=n_devices,
+                                         budget_bytes=1e12))
+
+    monkeypatch.setattr(tcand, "check_hbm_fit", fit)
+    tcand.compute_cells_candidate(idx, cfg)
+    (mm,) = judged
+    assert mm["n_devices"] == 2 and not mm["ring"]
+    assert mm["total_bytes"] == mm["replicated_bytes_per_device"]
+    # the two footprints differ here, so the check tells them apart
+    assert mm["total_bytes"] != mm["ring_bytes_per_device"]
 
 
 @pytest.mark.parametrize("backend", ["cuda", "cuda_cells", "xla", "dense"])

@@ -7,6 +7,7 @@ grow/cand/counts, each shard's step-major pair list) equal the JAX
 ``tests/test_ring.py``; inputs from seeded generators, comparisons
 exact."""
 
+import filecmp
 import os
 
 import numpy as np
@@ -80,19 +81,25 @@ def test_ring_matches_replicated_engine():
 
 
 def test_ring_requires_multi_device(tmp_path):
-    """One shard: ValueError naming the multi-device mesh, from the ring
-    itself and from a run (which writes nothing)."""
-    _, tidx = _twins(1, k=3, n_genomes=2, n_families=5,
-                     singleton_per_genome=1, min_len=40, max_len=80)
-    cfg = PipelineConfig(backend="pallas", n_devices=1, ring_extract=True,
-                         device="cpu")
+    """One shard: ValueError naming the multi-device mesh from the ring
+    itself and from a run on the cells path (which writes nothing); the
+    device BBH runs the replicated engine instead, as the JAX package
+    does, and says so in its statistics."""
+    jidx, tidx = _twins(1, k=3, n_genomes=2, n_families=5,
+                        singleton_per_genome=1, min_len=40, max_len=80)
+    kw = dict(backend="pallas", n_devices=1, ring_extract=True)
+    cfg = PipelineConfig(device="cpu", **kw)
     with pytest.raises(ValueError, match="multi-device"):
         compute_cells_ring(tidx, cfg)
-    with pytest.raises(ValueError, match="multi-device"):
-        compute_network_device(tidx, cfg)
+    edges, stats = compute_network_device(tidx, cfg)
+    jedges, jstats = jax_network_device(jidx, JaxConfig(**kw))
+    assert stats["ring_extract"] is jstats["ring_extract"] is False
+    assert stats["n_devices"] == 1
+    assert _edges(edges) == _edges(jedges)
     prefix = str(tmp_path / "x")
     with pytest.raises(ValueError, match="multi-device"):
-        run_pipeline(os.path.join(HERE, "data", "toy.faa"), prefix, cfg)
+        run_pipeline(os.path.join(HERE, "data", "toy.faa"), prefix,
+                     PipelineConfig(device="cpu", device_bbh=False, **kw))
     assert not os.path.exists(prefix + ".net")
 
 
@@ -197,16 +204,22 @@ def test_ring_layout_matches_jax():
 
 
 def test_ring_option_errors(tmp_path):
-    """The ring raises ValueError, writing nothing, under a backend other
-    than cuda (the JAX package would run its replicated engine) and when
-    the shards do not divide the padded gene count."""
+    """The ring under backend xla or dense runs what the JAX package runs
+    (xla's replicated engine with device BBH, the dense scorer) and
+    writes the goldens; it raises ValueError, writing nothing, when the
+    shards do not divide the padded gene count."""
     toy = os.path.join(HERE, "data", "toy.faa")
     prefix = str(tmp_path / "x")
-    for kw, msg in ((dict(backend="xla", n_devices=2), "cuda"),
-                    (dict(backend="dense", n_devices=2), "cuda"),
-                    (dict(n_devices=3), "not divisible")):
-        with pytest.raises(ValueError, match=msg):
-            run_pipeline(toy, prefix, PipelineConfig(
-                device="cpu", row_block=16, col_block=128,
-                ring_extract=True, **kw))
-        assert not os.path.exists(prefix + ".net")
+    cfg = dict(device="cpu", row_block=16, col_block=128, ring_extract=True)
+    for backend in ("xla", "dense"):
+        res = run_pipeline(toy, prefix, PipelineConfig(
+            backend=backend, n_devices=2, **cfg))
+        assert res.stats["network"].get("ring_extract", False) is False
+        for suffix in (".net", ".clus"):
+            assert filecmp.cmp(prefix + suffix,
+                               os.path.join(HERE, "golden", "toy" + suffix),
+                               shallow=False), (backend, suffix)
+            os.remove(prefix + suffix)
+    with pytest.raises(ValueError, match="not divisible"):
+        run_pipeline(toy, prefix, PipelineConfig(n_devices=3, **cfg))
+    assert not os.path.exists(prefix + ".net")
