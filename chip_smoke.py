@@ -1112,17 +1112,22 @@ def main() -> int:
                 check_memory_model(ph, cap["runner"].index, cfg,
                                    net["candidate_cap_final"], peak - held,
                                    dev)
-            if "dense_pass_s" in cap:
-                log(ph, f"dense pass wall {cap['dense_pass_s']:.4f}s (host "
-                    f"clock: padding, upload, matmuls, compaction, fetch; "
+            spans = {s["name"]: s for s in res.spans}
+            if "score.dense_pass" in spans:
+                secs = {n: (spans[n]["end_ns"] - spans[n]["start_ns"]) / 1e9
+                        for n in ("score.dense_pass",
+                                  "score.host_corrections")}
+                log(ph, f"dense pass span {secs['score.dense_pass']:.4f}s "
+                    f"(padding, upload, matmuls, compaction, fetch; "
                     f"{cap['dense_matmul_flops']:.4e} matmul flop), host "
-                    f"corrections {cap['host_corrections_s']:.4f}s")
+                    f"corrections span "
+                    f"{secs['score.host_corrections']:.4f}s")
             del cap, res
             torch.cuda.empty_cache()
 
         # 14. profiled runs (config.profile_dir, torch.profiler) of the
-        # default path, xla and dense: the card's busy share of the score
-        # and network window, and the kernels that fill it
+        # default path, xla and dense: the card's busy share of the whole
+        # job, and the kernels that fill it
         for tag, cfg in (("_prof_cuda", {}),
                          ("_prof_xla", dict(backend="xla")),
                          ("_prof_dense", dict(backend="dense"))):
@@ -1138,9 +1143,8 @@ def main() -> int:
                            if MATMUL_KERNEL.search(k["name"]))
             log(14, f"{MAIN} {cfg or dict(backend='cuda')} profiled: "
                 f".net/.clus byte-identical to golden; wall {wall:.2f}s; "
-                f"window {summ['window_s']:.4f}s (score "
-                f"{res.phase_times['score']:.4f}s + network "
-                f"{res.phase_times['network']:.4f}s), device busy "
+                f"window {summ['window_s']:.4f}s (the whole job; score "
+                f"{res.phase_times['score']:.4f}s), device busy "
                 f"{summ['device_busy_s']:.4f}s, busy_share {share:.4f}, "
                 f"{summ['n_kernel_launches']} kernel launches; matmul "
                 f"kernels (top ten) {matmul_s:.4f}s")

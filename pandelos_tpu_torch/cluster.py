@@ -25,10 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.native.loader import native_available
 
 
@@ -155,7 +157,7 @@ def _copy_scan_edges_np(vo, dsrc, ddst, pos_scratch):
 
 def _split_colliding_native(
     bunch, dsrc, ddst, comp_order, n_total, eu, ev, seq_genome,
-    pos_scratch, bool_scratch,
+    pos_scratch, bool_scratch, calls,
 ) -> "List[List[int]] | None":
     """One netclu ``split_until_max_k`` level (netclu_ng.py:101-115) via
     the C++ Brandes core, mirroring networkx 3.x order semantics exactly:
@@ -171,7 +173,9 @@ def _split_colliding_native(
       ``n_total`` is therefore the FULL graph's node count, threaded
       through every recursion depth;
     - the graph Brandes actually runs on is the view's copy, whose edge
-      order comes from ``_copy_scan_edges``."""
+      order comes from ``_copy_scan_edges``.
+
+    ``calls`` (a one-item list) counts the native split calls."""
     from pandelos_tpu_torch.native.loader import native_gn_split
 
     m_set: set = set()
@@ -183,6 +187,7 @@ def _split_colliding_native(
         view_order = [u for u in comp_order if u in m_set]
     vo = np.asarray(view_order, dtype=np.int64)
     leu, lev = _copy_scan_edges_np(vo, dsrc, ddst, pos_scratch)
+    calls[0] += 1
     labels = native_gn_split(len(view_order), leu, lev)
     if labels is None:
         return None
@@ -197,7 +202,7 @@ def _split_colliding_native(
         if _max_collision_arrays(com_a, eu, ev, seq_genome, bool_scratch) > 0:
             sub = _split_colliding_native(
                 com, dsrc, ddst, comp_order, n_total, eu, ev, seq_genome,
-                pos_scratch, bool_scratch,
+                pos_scratch, bool_scratch, calls,
             )
             if sub is None:
                 return None
@@ -218,192 +223,208 @@ def cluster_network(
     A pure-networkx pass took ~4 minutes at 1M edges / 39k genes; this
     runs in seconds with identical output (.clus lines are sorted, so
     component order is immaterial)."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
+    with tracing.span("cluster.components") as sp:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
 
-    seq_genome = np.asarray(seq_genome, dtype=np.int64)
+        seq_genome = np.asarray(seq_genome, dtype=np.int64)
 
-    if len(edges) == 0:
-        return ClusterResult(
-            families=[],
-            singletons=sorted(range(n_sequences)),
-            component_size_distr={},
-            family_size_distr={},
-        )
-
-    from pandelos_tpu_torch.io.net import EdgeList
-
-    el = EdgeList.from_any(edges)
-    ea, eb, ew = el.a, el.b, el.w
-    seen = np.zeros(n_sequences, dtype=bool)
-    seen[ea] = True
-    seen[eb] = True
-    # Global node insertion order: netclu adds cols[0] then cols[1] per
-    # line (netclu_ng.py:43-50), INCLUDING self-loop lines (which add the
-    # node but skip the edge) — a node's first appearance can be a
-    # self-loop, so the order is derived from the raw stream, not the
-    # loop-filtered one.
-    stream = np.empty(2 * len(ea), dtype=np.int64)
-    stream[0::2] = ea
-    stream[1::2] = eb
-    _, first_idx = np.unique(stream, return_index=True)
-    global_order = stream[np.sort(first_idx)]
-    order_rank = np.full(n_sequences, -1, dtype=np.int64)
-    order_rank[global_order] = np.arange(len(global_order))
-    # Self-loops are skipped (netclu_ng.py:54); the lone node still joins
-    # the graph (netclu_ng.py:48-50) and forms a 1-node component.
-    ns = ea != eb
-    ea2, eb2, ew2 = ea[ns], eb[ns], ew[ns]
-
-    adj = coo_matrix(
-        (np.ones(len(ea2), np.int8), (ea2, eb2)),
-        shape=(n_sequences, n_sequences),
-    )
-    n_comp, labels = connected_components(adj, directed=False)
-
-    # component sizes over seen nodes only (unseen genes are singletons)
-    seen_idx = np.flatnonzero(seen)
-    comp_sizes = np.bincount(labels[seen_idx], minlength=n_comp)
-
-    # --- vectorized max-collision per component (netclu_ng.py:79-96):
-    # collision(s) = (#same-genome members in s's component - 1)
-    #               - (#same-genome direct neighbours of s)
-    n_gen = int(seq_genome.max()) + 1 if n_sequences else 1
-    grp_key = labels[seen_idx] * np.int64(n_gen) + seq_genome[seen_idx]
-    uk, uinv, ucnt = np.unique(
-        grp_key, return_inverse=True, return_counts=True
-    )
-    members_same = ucnt[uinv]  # per seen node: same-(comp, genome) count
-    deg_same = np.zeros(n_sequences, dtype=np.int64)
-    sg = seq_genome[ea2] == seq_genome[eb2]
-    np.add.at(deg_same, ea2[sg], 1)
-    np.add.at(deg_same, eb2[sg], 1)
-    coll = members_same - 1 - deg_same[seen_idx]
-    comp_coll = np.zeros(n_comp, dtype=np.int64)
-    np.maximum.at(comp_coll, labels[seen_idx], coll)
-
-    # --- group nodes and edges by component
-    order_n = np.argsort(labels[seen_idx], kind="stable")
-    nodes_sorted = seen_idx[order_n]
-    node_starts = np.searchsorted(
-        labels[seen_idx][order_n], np.arange(n_comp + 1)
-    )
-    e_comp = labels[ea2]
-    order_e = np.argsort(e_comp, kind="stable")
-    edge_starts = np.searchsorted(
-        e_comp[order_e], np.arange(n_comp + 1)
-    )
-
-    families: List[List[int]] = []
-    comp_distr: dict = {}
-    fam_distr: dict = {}
-    remaining = np.ones(n_sequences, dtype=bool)
-    n_total = len(global_order)  # pnet node count, incl. self-loop-only
-    pnet_nx = None  # literal netclu graph, built lazily on native miss
-    coco_by_member: dict = {}
-
-    def _split_component(members, ceu, cev, pos_scratch, bool_scratch):
-        """Colliding-component GN recursion; None on native miss.
-        Thread-safe: every input and scratch is job-local."""
-        # members in netclu's full-graph dict order (first appearance
-        # may be a self-loop line, hence the global stream rank); the
-        # per-line double append restricted to this component IS
-        # pnet's adjacency for these nodes.
-        comp_order = members[np.argsort(order_rank[members])].tolist()
-        adj = {u: [] for u in comp_order}
-        for u, v in zip(ceu.tolist(), cev.tolist()):
-            adj[u].append(v)
-            adj[v].append(u)
-        # netclu's coco is the BFS set from connected_components,
-        # sourced at the first component member in pnet node order
-        coco = _plain_bfs_set(comp_order[0], adj)
-        # directed edge stream in pnet adjacency-insertion order:
-        # per edge, (u, v) then (v, u) (netclu_ng.py:55-56's double
-        # add_edge) — the basis for every copy-scan at any depth
-        dsrc = np.empty(2 * len(ceu), dtype=np.int64)
-        dsrc[0::2] = ceu
-        dsrc[1::2] = cev
-        ddst = np.empty_like(dsrc)
-        ddst[0::2] = cev
-        ddst[1::2] = ceu
-        return _split_colliding_native(
-            iter(coco), dsrc, ddst, comp_order, n_total, ceu, cev,
-            seq_genome, pos_scratch, bool_scratch,
-        )
-
-    # colliding components are independent jobs; the C++ Brandes core
-    # releases the GIL for the duration of each pt_gn_split call, so a
-    # small thread pool overlaps them (the Java analogue is the reference
-    # running netclu once, single-threaded — this phase parallelism has
-    # no ordering effect because each family list is derived per
-    # component and .clus lines are sorted on write)
-    comp_ids = [
-        c for c in range(n_comp)
-        if node_starts[c + 1] > node_starts[c] and comp_coll[c] > 0
-    ]
-    split_results: dict = {}
-    if comp_ids and native_available():
-        import concurrent.futures as cf
-
-        n_workers = min(len(comp_ids), os.cpu_count() or 1)
-
-        def job(c):
-            lo, hi = node_starts[c], node_starts[c + 1]
-            el, eh = edge_starts[c], edge_starts[c + 1]
-            idx = order_e[el:eh]
-            return c, _split_component(
-                nodes_sorted[lo:hi], ea2[idx], eb2[idx],
-                np.full(n_sequences, -1, dtype=np.int64),
-                np.zeros(n_sequences, dtype=bool),
+        if len(edges) == 0:
+            return ClusterResult(
+                families=[],
+                singletons=sorted(range(n_sequences)),
+                component_size_distr={},
+                family_size_distr={},
             )
 
-        if n_workers > 1:
-            with cf.ThreadPoolExecutor(n_workers) as pool:
-                for c, coms in pool.map(job, comp_ids):
-                    split_results[c] = coms
-        else:
-            for c in comp_ids:
-                split_results[c] = job(c)[1]
+        from pandelos_tpu_torch.io.net import EdgeList
 
-    for c in range(n_comp):
-        lo, hi = node_starts[c], node_starts[c + 1]
-        if hi == lo:
-            continue  # component of only-unseen nodes (isolated)
-        members = nodes_sorted[lo:hi]
-        size = int(hi - lo)
-        comp_distr[size] = comp_distr.get(size, 0) + 1
-        if comp_coll[c] > 0:
-            coms = split_results.get(c)
-            if coms is None:  # native core unavailable: literal networkx
-                if pnet_nx is None:
-                    import networkx as nx
+        el = EdgeList.from_any(edges)
+        ea, eb, ew = el.a, el.b, el.w
+        seen = np.zeros(n_sequences, dtype=bool)
+        seen[ea] = True
+        seen[eb] = True
+        # Global node insertion order: netclu adds cols[0] then cols[1] per
+        # line (netclu_ng.py:43-50), INCLUDING self-loop lines (which add the
+        # node but skip the edge) — a node's first appearance can be a
+        # self-loop, so the order is derived from the raw stream, not the
+        # loop-filtered one.
+        stream = np.empty(2 * len(ea), dtype=np.int64)
+        stream[0::2] = ea
+        stream[1::2] = eb
+        _, first_idx = np.unique(stream, return_index=True)
+        global_order = stream[np.sort(first_idx)]
+        order_rank = np.full(n_sequences, -1, dtype=np.int64)
+        order_rank[global_order] = np.arange(len(global_order))
+        # Self-loops are skipped (netclu_ng.py:54); the lone node still joins
+        # the graph (netclu_ng.py:48-50) and forms a 1-node component.
+        ns = ea != eb
+        ea2, eb2, ew2 = ea[ns], eb[ns], ew[ns]
 
-                    pnet_nx = nx.Graph()
-                    inodes: set = set()
-                    for a_, b_, w_ in zip(
-                        ea.tolist(), eb.tolist(), ew.tolist()
-                    ):
-                        if a_ not in inodes:
-                            inodes.add(a_)
-                            pnet_nx.add_node(a_)
-                        if b_ not in inodes and a_ != b_:
-                            inodes.add(b_)
-                            pnet_nx.add_node(b_)
-                        if a_ != b_:
-                            pnet_nx.add_edge(a_, b_, weight=w_)
-                            pnet_nx.add_edge(b_, a_, weight=w_)
-                    for coco_s in nx.connected_components(pnet_nx):
-                        coco_by_member[min(coco_s)] = coco_s
-                coms = _split_until_max_k(
-                    coco_by_member[int(members.min())], pnet_nx, seq_genome
+        adj = coo_matrix(
+            (np.ones(len(ea2), np.int8), (ea2, eb2)),
+            shape=(n_sequences, n_sequences),
+        )
+        n_comp, labels = connected_components(adj, directed=False)
+
+        # component sizes over seen nodes only (unseen genes are singletons)
+        seen_idx = np.flatnonzero(seen)
+        comp_sizes = np.bincount(labels[seen_idx], minlength=n_comp)
+
+        # --- vectorized max-collision per component (netclu_ng.py:79-96):
+        # collision(s) = (#same-genome members in s's component - 1)
+        #               - (#same-genome direct neighbours of s)
+        n_gen = int(seq_genome.max()) + 1 if n_sequences else 1
+        grp_key = labels[seen_idx] * np.int64(n_gen) + seq_genome[seen_idx]
+        uk, uinv, ucnt = np.unique(
+            grp_key, return_inverse=True, return_counts=True
+        )
+        members_same = ucnt[uinv]  # per seen node: same-(comp, genome) count
+        deg_same = np.zeros(n_sequences, dtype=np.int64)
+        sg = seq_genome[ea2] == seq_genome[eb2]
+        np.add.at(deg_same, ea2[sg], 1)
+        np.add.at(deg_same, eb2[sg], 1)
+        coll = members_same - 1 - deg_same[seen_idx]
+        comp_coll = np.zeros(n_comp, dtype=np.int64)
+        np.maximum.at(comp_coll, labels[seen_idx], coll)
+
+        # --- group nodes and edges by component
+        order_n = np.argsort(labels[seen_idx], kind="stable")
+        nodes_sorted = seen_idx[order_n]
+        node_starts = np.searchsorted(
+            labels[seen_idx][order_n], np.arange(n_comp + 1)
+        )
+        e_comp = labels[ea2]
+        order_e = np.argsort(e_comp, kind="stable")
+        edge_starts = np.searchsorted(
+            e_comp[order_e], np.arange(n_comp + 1)
+        )
+
+        families: List[List[int]] = []
+        comp_distr: dict = {}
+        fam_distr: dict = {}
+        remaining = np.ones(n_sequences, dtype=bool)
+        n_total = len(global_order)  # pnet node count, incl. self-loop-only
+        pnet_nx = None  # literal netclu graph, built lazily on native miss
+        coco_by_member: dict = {}
+
+        def _split_component(members, ceu, cev, pos_scratch, bool_scratch,
+                         calls):
+            """Colliding-component GN recursion; None on native miss.
+            Thread-safe: every input and scratch is job-local."""
+            # members in netclu's full-graph dict order (first appearance
+            # may be a self-loop line, hence the global stream rank); the
+            # per-line double append restricted to this component IS
+            # pnet's adjacency for these nodes.
+            comp_order = members[np.argsort(order_rank[members])].tolist()
+            adj = {u: [] for u in comp_order}
+            for u, v in zip(ceu.tolist(), cev.tolist()):
+                adj[u].append(v)
+                adj[v].append(u)
+            # netclu's coco is the BFS set from connected_components,
+            # sourced at the first component member in pnet node order
+            coco = _plain_bfs_set(comp_order[0], adj)
+            # directed edge stream in pnet adjacency-insertion order:
+            # per edge, (u, v) then (v, u) (netclu_ng.py:55-56's double
+            # add_edge) — the basis for every copy-scan at any depth
+            dsrc = np.empty(2 * len(ceu), dtype=np.int64)
+            dsrc[0::2] = ceu
+            dsrc[1::2] = cev
+            ddst = np.empty_like(dsrc)
+            ddst[0::2] = cev
+            ddst[1::2] = ceu
+            return _split_colliding_native(
+                iter(coco), dsrc, ddst, comp_order, n_total, ceu, cev,
+                seq_genome, pos_scratch, bool_scratch, calls,
+            )
+
+        # colliding components are independent jobs; the C++ Brandes core
+        # releases the GIL for the duration of each pt_gn_split call, so a
+        # small thread pool overlaps them (the Java analogue is the reference
+        # running netclu once, single-threaded — this phase parallelism has
+        # no ordering effect because each family list is derived per
+        # component and .clus lines are sorted on write)
+        comp_ids = [
+            c for c in range(n_comp)
+            if node_starts[c + 1] > node_starts[c] and comp_coll[c] > 0
+        ]
+        split_results: dict = {}
+        sp.set("components", int(n_comp))
+        sp.set("colliding", len(comp_ids))
+
+    with tracing.span("cluster.split", split_calls=0, split_thread_s=0.0,
+                      threads=0) as sp:
+        if comp_ids and native_available():
+            import concurrent.futures as cf
+
+            n_workers = min(len(comp_ids), os.cpu_count() or 1)
+
+            def job(c):
+                """(c, its communities, the call's own seconds, its
+                native split calls): worker threads open no spans."""
+                t = time.perf_counter()
+                lo, hi = node_starts[c], node_starts[c + 1]
+                el, eh = edge_starts[c], edge_starts[c + 1]
+                idx = order_e[el:eh]
+                calls = [0]
+                coms = _split_component(
+                    nodes_sorted[lo:hi], ea2[idx], eb2[idx],
+                    np.full(n_sequences, -1, dtype=np.int64),
+                    np.zeros(n_sequences, dtype=bool), calls,
                 )
-        else:
-            coms = [sorted(members.tolist())]
-        for com in coms:
-            fam = sorted(com)
-            fam_distr[len(fam)] = fam_distr.get(len(fam), 0) + 1
-            families.append(fam)
-            remaining[fam] = False
+                return c, coms, time.perf_counter() - t, calls[0]
+
+            if n_workers > 1:
+                with cf.ThreadPoolExecutor(n_workers) as pool:
+                    done = list(pool.map(job, comp_ids))
+            else:
+                done = [job(c) for c in comp_ids]
+            for c, coms, secs, calls in done:
+                split_results[c] = coms
+                sp.add("split_thread_s", secs)
+                sp.add("split_calls", calls)
+            sp.set("threads", n_workers)
+
+    with tracing.span("cluster.assemble"):
+        for c in range(n_comp):
+            lo, hi = node_starts[c], node_starts[c + 1]
+            if hi == lo:
+                continue  # component of only-unseen nodes (isolated)
+            members = nodes_sorted[lo:hi]
+            size = int(hi - lo)
+            comp_distr[size] = comp_distr.get(size, 0) + 1
+            if comp_coll[c] > 0:
+                coms = split_results.get(c)
+                if coms is None:  # native core unavailable: literal networkx
+                    if pnet_nx is None:
+                        import networkx as nx
+
+                        pnet_nx = nx.Graph()
+                        inodes: set = set()
+                        for a_, b_, w_ in zip(
+                            ea.tolist(), eb.tolist(), ew.tolist()
+                        ):
+                            if a_ not in inodes:
+                                inodes.add(a_)
+                                pnet_nx.add_node(a_)
+                            if b_ not in inodes and a_ != b_:
+                                inodes.add(b_)
+                                pnet_nx.add_node(b_)
+                            if a_ != b_:
+                                pnet_nx.add_edge(a_, b_, weight=w_)
+                                pnet_nx.add_edge(b_, a_, weight=w_)
+                        for coco_s in nx.connected_components(pnet_nx):
+                            coco_by_member[min(coco_s)] = coco_s
+                    coms = _split_until_max_k(
+                        coco_by_member[int(members.min())], pnet_nx, seq_genome
+                    )
+            else:
+                coms = [sorted(members.tolist())]
+            for com in coms:
+                fam = sorted(com)
+                fam_distr[len(fam)] = fam_distr.get(len(fam), 0) + 1
+                families.append(fam)
+                remaining[fam] = False
 
     return ClusterResult(
         families=families,

@@ -115,9 +115,9 @@ class PipelineConfig:
     checkpoint_dir: Optional[str] = None
 
     # --- observability
-    # When set, the score and network phases run under a torch.profiler
-    # trace written to this directory with a summary of the card's busy
-    # share (pandelos_tpu_torch/profiling.py).
+    # When set, the whole job runs under a torch.profiler trace written to
+    # this directory, its spans as pandelos.* ranges, with a summary of
+    # the card's busy share (pandelos_tpu_torch/profiling.py).
     profile_dir: Optional[str] = None
 
     def to_json(self) -> str:

@@ -36,6 +36,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.io.faa import FaaDataset
 
 # The reference's hardcoded throughput model used for the -c mode ETA
@@ -193,14 +194,16 @@ def build_index(
 
     n_seq = ds.n_sequences
     seq_genome = np.asarray(ds.seq_genome, dtype=np.int32)
-    concat, offsets, lengths = _encode_sequences(ds.sequences)
+    with tracing.span("index.encode"):
+        concat, offsets, lengths = _encode_sequences(ds.sequences)
 
     kseq_lengths = np.maximum(lengths - k + 1, 0).astype(np.int64)
 
     if use_native and n_seq > 0:
         from pandelos_tpu_torch.native import native_build_index
 
-        native = native_build_index(concat, offsets, k)
+        with tracing.span("index.native"):
+            native = native_build_index(concat, offsets, k)
         if native is not None:
             ptr, ids, cnts, costs, vocab_size, total_vocab = native
             if only_complexity:

@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.config import (
     PipelineConfig,
     resolve_backend,
@@ -160,7 +161,8 @@ def first_k(mask, K: int) -> tuple:
     row-major, so a set bit's rank is its index minus its row's
     exclusive base."""
     cnt = mask.sum(1, dtype=torch.int32)
-    nz = mask.nonzero()
+    with tracing.blocked():  # the host waits for the set bits' count
+        nz = mask.nonzero()
     rr, cc = nz[:, 0], nz[:, 1]
     base = torch.cumsum(cnt.long(), 0) - cnt.long()
     rank = torch.arange(nz.shape[0], device=mask.device) - base[rr]
@@ -313,7 +315,8 @@ def _join_slots(all_ids, all_counts, col_lens, grow, cand, counts,
     inter = torch.zeros(cf.shape, dtype=torch.float32, device=dev)
     perc = torch.zeros_like(inter)
     tr = torch.zeros_like(inter)
-    rr, ss = have.nonzero(as_tuple=True)
+    with tracing.blocked():
+        rr, ss = have.nonzero(as_tuple=True)
     step = pair_chunk or join_chunk(W)
     for p0 in range(0, rr.shape[0], step):
         r, sl = rr[p0: p0 + step], ss[p0: p0 + step]

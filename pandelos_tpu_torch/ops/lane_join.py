@@ -34,6 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
+from pandelos_tpu_torch import tracing
+
 _LANE = 128
 _EMPTY = -256
 # packed entries: id << 8 | count needs count < 256 and id < 2^23
@@ -94,7 +96,8 @@ def pack_lane_device_core(
     WL = D * _LANE
     dev = ids.device
     if packed and ids.numel():
-        lims = torch.stack([counts.max(), ids.max()]).tolist()
+        with tracing.blocked():
+            lims = torch.stack([counts.max(), ids.max()]).tolist()
         if lims[0] >= _PACK_COUNT_LIMIT or lims[1] >= _PACK_ID_LIMIT:
             raise ValueError(
                 f"the packed lane table needs counts < {_PACK_COUNT_LIMIT} "
@@ -240,7 +243,8 @@ def check_pair_indices(a_idx, b_idx, G_pad: int, dg=None, D: int = 0):
     lims = [*torch.aminmax(a_idx), *torch.aminmax(b_idx)]
     if dg is not None:
         lims += torch.aminmax(dg)
-    lims = torch.stack(lims).tolist()
+    with tracing.blocked():
+        lims = torch.stack(lims).tolist()
     lo, hi = min(lims[0], lims[2]), max(lims[1], lims[3])
     if lo < 0 or hi >= G_pad:
         raise ValueError(

@@ -33,12 +33,12 @@ position for the counterpart-maxima lookups, the ``all_gather`` order.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.config import (
     PipelineConfig,
     check_ported,
@@ -139,7 +139,8 @@ def _emit(emask, accept, gf, cf, e_inter_of, edge_cap: int):
     cells' intersections."""
     dev = emask.device
     K = cf.shape[1]
-    (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
+    with tracing.blocked():
+        (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
     n_edges = int(eidx.shape[0])
     while n_edges > edge_cap:
         edge_cap = _next_pow2(n_edges)
@@ -219,7 +220,7 @@ def _emit_program(emask, accept, gf, cf, e_inter_of, edge_cap: int):
     """:func:`_emit` at an edge cap every shard shares: the initial cap,
     or past the largest shard's emitted count its next power of two (the
     JAX retry loop's cap).  A generator (one collective)."""
-    n_edges = int(emask.sum())
+    n_edges = tracing.to_int(emask.sum())
     most = yield ("max_int", n_edges)
     if most > edge_cap:
         edge_cap = _next_pow2(most)
@@ -269,9 +270,9 @@ def _bbh_program(grow, cand, inter, perc, tr, valid, inv_perm, lens,
                       lambda flat: inter_rk.reshape(-1)[flat], edge_cap))
     counts_out = {
         "n_edges": n_edges,
-        "n_valid": int((score > 0).sum()),
-        "n_inter": int(acc_cell.sum()),
-        "n_intra": int(intra.sum()),
+        "n_valid": tracing.to_int((score > 0).sum()),
+        "n_inter": tracing.to_int(acc_cell.sum()),
+        "n_intra": tracing.to_int(intra.sum()),
     }
     return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
 
@@ -342,9 +343,9 @@ def _bbh_flat_program(grow, cand, counts, pi, pj, fi, fp, ft, fv,
         _emit_program(emask, accept, gf, cf, inter_at, edge_cap))
     counts_out = {
         "n_edges": n_edges,
-        "n_valid": int((score_f > 0).sum()),
-        "n_inter": int(acc_cell.sum()),
-        "n_intra": int(intra.sum()),
+        "n_valid": tracing.to_int((score_f > 0).sum()),
+        "n_inter": tracing.to_int(acc_cell.sum()),
+        "n_intra": tracing.to_int(intra.sum()),
     }
     return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
 
@@ -380,7 +381,15 @@ def compute_network_device(
     and outputs of the first local shard (the table that kernel read,
     depths, pair lists, counters), so that a caller can check and time
     the kernel and the bound bits at the shapes of this run, and every
-    shard's pair total (``pairs_per_shard``)."""
+    shard's pair total (``pairs_per_shard``).
+
+    The engine's sub-phases are spans of :mod:`pandelos_tpu_torch.tracing`
+    under the caller's (``setup.pad_profiles``, ``setup.runner``,
+    ``setup.signatures``, ``extract``, ``flatten_join`` under ``"cuda"``,
+    ``bbh``, ``fetch``, ``host.edges``, ``host.stats``); none
+    synchronises the card.  ``stats["phase_s"]`` holds their seconds and
+    ``wait``, the seconds the host spent blocked on the card within
+    them."""
     from pandelos_tpu_torch.parallel.shards import resolve_shards
 
     config = config or PipelineConfig()
@@ -395,82 +404,80 @@ def compute_network_device(
     # engine, as in the JAX package
     use_ring = ring_engaged(config, shards.n)
 
-    _trace = os.environ.get("PT_TIMING") == "1"
-    _t0 = time.monotonic()
-    _phase_s = {}
+    # one span a sub-phase, each a child of the caller's; none syncs the
+    # card: the host's waits on it are counted where it blocks
+    spans = []
 
-    def _mark(label):
-        nonlocal _t0
-        for d in set(shards.devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        dt = time.monotonic() - _t0
-        _phase_s[label.split("(")[0]] = round(dt, 4)
-        if _trace:
-            print(f"[pt:bbh] {label}: {dt:.2f}s", flush=True)
-        _t0 = time.monotonic()
+    def phase(name, **counters):
+        sp = tracing.span(name, **counters)
+        spans.append(sp)
+        return sp
 
-    check_hbm_fit(index, config, dev, ring=use_ring, n_devices=shards.n)
-    row_block = min(config.row_block, _round_up(G, 8))
-    col_block = min(config.col_block, _round_up(G, 128))
-    padded = pad_profiles(index, row_block, col_block)
-    _mark("setup.pad_profiles")
+    with phase("setup.pad_profiles"):
+        check_hbm_fit(index, config, dev, ring=use_ring, n_devices=shards.n)
+        row_block = min(config.row_block, _round_up(G, 8))
+        col_block = min(config.col_block, _round_up(G, 128))
+        padded = pad_profiles(index, row_block, col_block)
     G_pad = padded.ids.shape[0]
     if use_ring and G_pad % shards.n:
         raise ValueError(
             f"G_pad={G_pad} not divisible by n_devices={shards.n}; "
             f"choose a col_block divisible by the device count")
 
-    runner = get_runner(index, padded, config, shards)
-    _mark("setup.runner(upload)")
-    if not use_ring:
-        # the ring builds each shard's signatures in its own program
-        sig_mass, _, _ = build_signatures(
-            index, padded, runner.all_ids, runner.all_counts
-        )
-        runner.set_sig(sig_mass)
-    _mark("setup.signatures")
-
-    widths = np.diff(index.profile_ptr)
-    perm = np.argsort(widths, kind="stable").astype(np.int32)
-    n_blocks = -(-G // row_block)
-    perm_pad = np.full(n_blocks * row_block, G, dtype=np.int32)
-    perm_pad[:G] = perm
-    perm_ext = np.concatenate(
-        [perm_pad, np.full(row_block, G, dtype=np.int32)]
-    )
-    starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
-
-    K = config.candidate_cap
-    # backend "xla" joins inside the extraction ([rows, K] counters, no
-    # join kernel, no bound bits), as the JAX package gates both on its
-    # pallas backend
-    use_kernel = resolve_backend(config.backend) == "cuda"
-    use_T = use_kernel and runner.use_bound_bits(len(starts), row_block)
-    grow_h = runner.grow_layout(perm_ext, starts, row_block)  # [S*n, R]
-    steps = shards.n if use_ring else 1
-    while True:
-        if use_ring:
-            from pandelos_tpu_torch.ops.ring import ring_extract
-
-            outs = ring_extract(runner, perm_ext, starts, row_block, K,
-                                upper_only=False)
-            # [steps, S*n, R]: the step axis leads, rows are sharded
-            counts_h = shards.fetch([o[2] for o in outs], axis=1)
-        else:
-            outs = runner.extract_shards(
-                perm_ext, starts, row_block, padded.width, K,
-                do_join=not use_kernel, upper_only=False, from_T=use_T,
+    with phase("setup.runner"):
+        runner = get_runner(index, padded, config, shards)
+    with phase("setup.signatures"):
+        if not use_ring:
+            # the ring builds each shard's signatures in its own program
+            sig_mass, _, _ = build_signatures(
+                index, padded, runner.all_ids, runner.all_counts
             )
-            counts_h = shards.fetch([o[-1] for o in outs])
-        grow_v = np.broadcast_to(grow_h, counts_h.shape)
-        over = (counts_h > K) & (grow_v < G)
-        if not np.any(over):
-            break
-        K = _next_pow2(int(counts_h[over].max()))
-        if K > MAX_CANDIDATE_CAP:
-            return None  # pathological: the host cells path
-    _mark(f"extract(K={K})")
+            runner.set_sig(sig_mass)
+
+    with phase("extract") as sp:
+        widths = np.diff(index.profile_ptr)
+        perm = np.argsort(widths, kind="stable").astype(np.int32)
+        n_blocks = -(-G // row_block)
+        perm_pad = np.full(n_blocks * row_block, G, dtype=np.int32)
+        perm_pad[:G] = perm
+        perm_ext = np.concatenate(
+            [perm_pad, np.full(row_block, G, dtype=np.int32)]
+        )
+        starts = np.arange(0, n_blocks * row_block, row_block, np.int32)
+
+        K = config.candidate_cap
+        # backend "xla" joins inside the extraction ([rows, K] counters,
+        # no join kernel, no bound bits), as the JAX package gates both on
+        # its pallas backend
+        use_kernel = resolve_backend(config.backend) == "cuda"
+        use_T = use_kernel and runner.use_bound_bits(len(starts), row_block)
+        grow_h = runner.grow_layout(perm_ext, starts, row_block)  # [S*n, R]
+        steps = shards.n if use_ring else 1
+        while True:
+            sp.add("passes", 1)  # each pass past the first grew K
+            sp.set("K", K)
+            if use_ring:
+                from pandelos_tpu_torch.ops.ring import ring_extract
+
+                outs = ring_extract(runner, perm_ext, starts, row_block, K,
+                                    upper_only=False)
+                # [steps, S*n, R]: the step axis leads, rows are sharded
+                counts_h = shards.fetch([o[2] for o in outs], axis=1)
+            else:
+                outs = runner.extract_shards(
+                    perm_ext, starts, row_block, padded.width, K,
+                    do_join=not use_kernel, upper_only=False, from_T=use_T,
+                )
+                counts_h = shards.fetch([o[-1] for o in outs])
+            grow_v = np.broadcast_to(grow_h, counts_h.shape)
+            over = (counts_h > K) & (grow_v < G)
+            if not np.any(over):
+                break
+            K = _next_pow2(int(counts_h[over].max()))
+            if K > MAX_CANDIDATE_CAP:
+                sp.set("K", K)
+                sp.set("fallback", 1)
+                return None  # pathological: the host cells path
     if capture is not None:
         capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
                        row_block=row_block, use_T=use_T)
@@ -480,186 +487,207 @@ def compute_network_device(
     per_shard = nf_cap.sum(axis=(0, 2), dtype=np.int64)
     pair_cap = None
     if use_kernel:
-        pair_cap = runner.pair_capacity_from_worst(
-            int(per_shard.max(initial=0)))
-        flat = runner.flatten_join_shards(outs, K, pair_cap)
+        with phase("flatten_join") as sp:
+            pair_cap = runner.pair_capacity_from_worst(
+                int(per_shard.max(initial=0)))
+            sp.set("pair_cap", pair_cap)
+            sp.set("launches", shards.n_local)  # a join kernel a shard
+            flat = runner.flatten_join_shards(outs, K, pair_cap)
         if capture is not None:
             fpi, fpj, fi, fp, ft, _ = flat[0]
             capture.update(
                 join_kernel=runner.join_kernel, table=runner.join_table,
                 dg=runner.dg, pi=fpi, pj=fpj, inter=fi, perc=fp, tr=ft,
             )
-        _mark(f"flatten_join(pair_cap={pair_cap})")
     if capture is not None:
         capture["pairs_per_shard"] = per_shard
 
-    # gene -> global row position (the all_gather row order)
-    rows_h = grow_h.reshape(-1)
-    inv_perm = np.zeros(G_pad, dtype=np.int32)
-    real = rows_h < G
-    inv_perm[rows_h[real]] = np.flatnonzero(real).astype(np.int32)
-    lens_pad = np.zeros(G_pad, dtype=np.float32)
-    lens_pad[:G] = index.kseq_lengths
-    genome_pad = np.zeros(G_pad, dtype=np.int32)
-    genome_pad[:G] = index.seq_genome
-    n_gen = index.n_genomes
+    with phase("bbh") as sp:
+        # gene -> global row position (the all_gather row order)
+        rows_h = grow_h.reshape(-1)
+        inv_perm = np.zeros(G_pad, dtype=np.int32)
+        real = rows_h < G
+        inv_perm[rows_h[real]] = np.flatnonzero(real).astype(np.int32)
+        lens_pad = np.zeros(G_pad, dtype=np.float32)
+        lens_pad[:G] = index.kseq_lengths
+        genome_pad = np.zeros(G_pad, dtype=np.int32)
+        genome_pad[:G] = index.seq_genome
+        n_gen = index.n_genomes
 
-    # every emitted cell is valid and valid pairs pass the bound in both
-    # orientations, so emitted cells <= half the candidate slots (on one
-    # shard; a shard's mirror slots can sit elsewhere, and the cap grows
-    # past the largest shard's count)
-    edge_cap = max(
-        1 << 14, _next_pow2(int(per_shard.max(initial=0)) // 2 + 1)
-    )
-    # test hook: a small initial cap makes the doubling step run
-    cap_env = os.environ.get("PANDELOS_EDGE_CAP_INIT")
-    if cap_env:
-        edge_cap = _next_pow2(int(cap_env))
-    edge_cap_initial = edge_cap
-    tails = zip(shards.replicate(inv_perm), shards.replicate(lens_pad),
-                shards.replicate(genome_pad))
-    if use_kernel:
-        programs = [
-            _bbh_flat_program(*o, *f, *t, n_gen, edge_cap, steps=steps)
-            for o, f, t in zip(outs, flat, tails)]
-    else:
-        programs = [_bbh_program(*o[:-1], *t, n_gen, edge_cap)
-                    for o, t in zip(outs, tails)]
-    results = shards.spmd(programs)
-    edge_cap = results[0][6]
-    mats = results[0][5]  # merged over every shard
-    n_by_shard = shards.fetch([
-        torch.tensor([[r[4][k] for k in ("n_edges", "n_valid", "n_inter",
-                                          "n_intra")]], device=d)
-        for r, d in zip(results, shards.devices)])
-    n_edges_max = int(n_by_shard[:, 0].max())
-    n_valid, n_acc_canonical, _ = (int(x) for x in n_by_shard[:, 1:].sum(0))
-    _mark(f"bbh(edge_cap={edge_cap})")
+        # every emitted cell is valid and valid pairs pass the bound in
+        # both orientations, so emitted cells <= half the candidate slots
+        # (on one shard; a shard's mirror slots can sit elsewhere, and the
+        # cap grows past the largest shard's count)
+        edge_cap = max(
+            1 << 14, _next_pow2(int(per_shard.max(initial=0)) // 2 + 1)
+        )
+        # test hook: a small initial cap makes the doubling step run
+        cap_env = os.environ.get("PANDELOS_EDGE_CAP_INIT")
+        if cap_env:
+            edge_cap = _next_pow2(int(cap_env))
+        edge_cap_initial = edge_cap
+        tails = zip(shards.replicate(inv_perm), shards.replicate(lens_pad),
+                    shards.replicate(genome_pad))
+        if use_kernel:
+            programs = [
+                _bbh_flat_program(*o, *f, *t, n_gen, edge_cap, steps=steps)
+                for o, f, t in zip(outs, flat, tails)]
+        else:
+            programs = [_bbh_program(*o[:-1], *t, n_gen, edge_cap)
+                        for o, t in zip(outs, tails)]
+        results = shards.spmd(programs)
+        edge_cap = results[0][6]
+        mats = results[0][5]  # merged over every shard
+        n_by_shard = shards.fetch([
+            torch.tensor([[r[4][k] for k in ("n_edges", "n_valid",
+                                              "n_inter", "n_intra")]],
+                         device=d)
+            for r, d in zip(results, shards.devices)])
+        n_edges_max = int(n_by_shard[:, 0].max())
+        n_valid, n_acc_canonical, _ = (
+            int(x) for x in n_by_shard[:, 1:].sum(0))
+        sp.set("edge_cap_initial", edge_cap_initial)
+        sp.set("edge_cap", edge_cap)
 
-    # --- ship the accepted cells: bit-packed to 8 bytes per cell when
-    # they fit ((row+1) << 16 | col and inter << 1 | acc), and sliced to
-    # the largest shard's edge count
-    pack_ok = (
-        G < 65535
-        and int(np.asarray(index.kseq_lengths).max(initial=0)) < 2**24
-        # test hook: force the unpacked fetch branch at small G
-        and os.environ.get("PANDELOS_NO_EDGE_PACK") != "1"
-    )
-    ims, gmin_s, gmin_p, gmax_p = (m.cpu().numpy() for m in mats)
-    n_fetch = min(edge_cap, _round_up(n_edges_max + 1, 4096))
-    cut = [[x[:n_fetch] for x in r[:4]] for r in results]
-    if pack_ok:
-        packed = []
-        for r, c, i, acc in cut:
-            # int64 on the device, cut to the low 32 bits for the transfer
-            # (the host reads them back as uint32)
-            rc_d = torch.where(r >= 0, ((r + 1) << 16) | c,
-                               torch.zeros_like(r))
-            ia_d = (i.to(torch.int64) << 1) | acc.to(torch.int64)
-            packed.append((rc_d.to(torch.int32), ia_d.to(torch.int32)))
-        rc_h, ia_h = shards.fetch_many(*zip(*packed))
-        rc_u = rc_h.view(np.uint32)
-        keep_mask = rc_u != 0
-        e_row = np.where(keep_mask, (rc_u >> 16).astype(np.int64) - 1, -1)
-        e_col = (rc_u & 0xFFFF).astype(np.int64)
-        e_inter = (ia_h >> 1).astype(np.int64)
-        e_acc = (ia_h & 1).astype(bool)
-    else:
-        e_row, e_col, e_inter, e_acc = shards.fetch_many(*zip(*cut))
-    keep = e_row >= 0
-    e_row = e_row[keep].astype(np.int64)
-    e_col = e_col[keep].astype(np.int64)
-    e_inter = e_inter[keep].astype(np.int64)
-    # union from the exact integer kseq lengths (|A| + |B| - inter); the
-    # device accept used f32 lengths, exact below 2^24
-    assert int(np.asarray(index.kseq_lengths).max(initial=0)) < 2**24
-    assert int(e_row.max(initial=-1)) < G and int(e_col.max(initial=-1)) < G
-    lens_i64 = np.asarray(index.kseq_lengths, np.int64)
-    e_union = lens_i64[e_row] + lens_i64[e_col] - e_inter
-    e_acc = e_acc[keep]
-    _mark(f"fetch(edges={int(keep.sum())})")
+    with phase("fetch") as sp:
+        # --- ship the accepted cells: bit-packed to 8 bytes per cell
+        # when they fit ((row+1) << 16 | col and inter << 1 | acc), and
+        # sliced to the largest shard's edge count
+        pack_ok = (
+            G < 65535
+            and int(np.asarray(index.kseq_lengths).max(initial=0)) < 2**24
+            # test hook: force the unpacked fetch branch at small G
+            and os.environ.get("PANDELOS_NO_EDGE_PACK") != "1"
+        )
+        with tracing.blocked():
+            ims, gmin_s, gmin_p, gmax_p = (m.cpu().numpy() for m in mats)
+        n_fetch = min(edge_cap, _round_up(n_edges_max + 1, 4096))
+        cut = [[x[:n_fetch] for x in r[:4]] for r in results]
+        if pack_ok:
+            packed = []
+            for r, c, i, acc in cut:
+                # int64 on the device, cut to the low 32 bits for the
+                # transfer (the host reads them back as uint32)
+                rc_d = torch.where(r >= 0, ((r + 1) << 16) | c,
+                                   torch.zeros_like(r))
+                ia_d = (i.to(torch.int64) << 1) | acc.to(torch.int64)
+                packed.append((rc_d.to(torch.int32), ia_d.to(torch.int32)))
+            rc_h, ia_h = shards.fetch_many(*zip(*packed))
+            rc_u = rc_h.view(np.uint32)
+            keep_mask = rc_u != 0
+            e_row = np.where(keep_mask, (rc_u >> 16).astype(np.int64) - 1,
+                             -1)
+            e_col = (rc_u & 0xFFFF).astype(np.int64)
+            e_inter = (ia_h >> 1).astype(np.int64)
+            e_acc = (ia_h & 1).astype(bool)
+        else:
+            e_row, e_col, e_inter, e_acc = shards.fetch_many(*zip(*cut))
+        keep = e_row >= 0
+        e_row = e_row[keep].astype(np.int64)
+        e_col = e_col[keep].astype(np.int64)
+        e_inter = e_inter[keep].astype(np.int64)
+        # union from the exact integer kseq lengths (|A| + |B| - inter);
+        # the device accept used f32 lengths, exact below 2^24
+        assert int(np.asarray(index.kseq_lengths).max(initial=0)) < 2**24
+        assert (int(e_row.max(initial=-1)) < G
+                and int(e_col.max(initial=-1)) < G)
+        lens_i64 = np.asarray(index.kseq_lengths, np.int64)
+        e_union = lens_i64[e_row] + lens_i64[e_col] - e_inter
+        e_acc = e_acc[keep]
+        sp.set("edges", len(e_row))
 
-    # host-exact f32 scores.  Each cell was emitted once (canonical col >
-    # row, from the one shard holding its lower-id row; under the ring,
-    # from the one step holding its column), so the keys are unique and
-    # an argsort orders them (the JAX package's np.unique over its
-    # shards' cells finds nothing to drop)
-    scores = e_inter.astype(np.float32) / e_union.astype(np.float32)
-    a = np.minimum(e_row, e_col)
-    b = np.maximum(e_row, e_col)
-    key = (a << np.int64(32)) | b
-    first = np.argsort(key, kind="stable")
-    uk = key[first]
-    assert not np.any(uk[1:] == uk[:-1]), "a cell was emitted twice"
-    edges = EdgeList(
-        uk >> np.int64(32),
-        uk & np.int64(0xFFFFFFFF),
-        scores[first].astype(np.float64),
-    )
-    _mark("host.edges")
+    with phase("host.edges"):
+        # host-exact f32 scores.  Each cell was emitted once (canonical
+        # col > row, from the one shard holding its lower-id row; under
+        # the ring, from the one step holding its column), so the keys
+        # are unique and an argsort orders them (the JAX package's
+        # np.unique over its shards' cells finds nothing to drop)
+        scores = e_inter.astype(np.float32) / e_union.astype(np.float32)
+        a = np.minimum(e_row, e_col)
+        b = np.maximum(e_row, e_col)
+        key = (a << np.int64(32)) | b
+        first = np.argsort(key, kind="stable")
+        uk = key[first]
+        assert not np.any(uk[1:] == uk[:-1]), "a cell was emitted twice"
+        edges = EdgeList(
+            uk >> np.int64(32),
+            uk & np.int64(0xFFFFFFFF),
+            scores[first].astype(np.float64),
+        )
 
-    # genome-pair statistics (net.py build_network's aggregates,
-    # Pangenes.java:130-143): min/max families from the device over the
-    # canonical accepted cells, mirrored as (m op m.T); mean/count here
-    stats = {
-        "n_cells": n_valid,
-        "n_accepted_inter_cells": 2 * n_acc_canonical,
-        "n_inter_edges": int(e_acc.sum()),
-        "n_intra_edges": int((~e_acc).sum()),
-        "n_edges": len(edges),
-        "n_joined_pairs": int(
-            np.minimum(counts_h, K)[grow_v < G].sum(dtype=np.int64)),
-        "device_bbh": True,
-        "ring_extract": use_ring,
-        "device": str(dev),
-        "n_devices": shards.n,
-        "phase_s": dict(_phase_s),
-        "candidate_cap_final": int(K),
-        "bound_bits_mode": bool(use_T),
-        "edge_cap_initial": int(edge_cap_initial),
-        # backend "xla" has no flat pair list and no join table (None, as
-        # in the JAX package)
-        "pair_cap": int(pair_cap) if use_kernel else None,
-        "lane_D": int(runner.lane_D) if use_kernel else None,
-        "join_kernel": runner.join_kernel if use_kernel else None,
-        # only when the lane2 table exists: under lane or roll, building
-        # it would cost memory for nothing (and cannot pack when the
-        # input forced the lane fallback)
-        "lane_table_cols": (
-            int(runner.all_lane2.shape[1])
-            if use_kernel and runner.join_kernel == "lane2" else None
-        ),
-        "edge_cap": int(edge_cap),
-    }
-    if shards.n > 1 or shards.group is not None:
-        stats["pairs_per_shard"] = per_shard.tolist()
-    if n_gen <= 128 and not _no_stats() and n_acc_canonical > 0:
-        acc_i = e_row[e_acc]
-        acc_j = e_col[e_acc]
-        asc = scores[e_acc].astype(np.float64)
-        sg = np.asarray(index.seq_genome)
-        bins = sg[acc_i] * n_gen + sg[acc_j]
-        S = np.bincount(bins, weights=asc, minlength=n_gen * n_gen)
-        C = np.bincount(bins, minlength=n_gen * n_gen)
-        gp_sum = S.reshape(n_gen, n_gen)
-        gp_sum = gp_sum + gp_sum.T
-        gp_cnt = C.reshape(n_gen, n_gen).astype(np.int64)
-        gp_cnt = gp_cnt + gp_cnt.T
-        # device matrices carry the neutrals (+inf / 0) at empty entries;
-        # the reference inits everything at 1.0, and max_perc's init
-        # dominates (perc fractions <= 1.0 — the host-path quirk)
-        gp_min = np.minimum(np.minimum(gmin_s, gmin_s.T), np.float32(1.0))
-        gp_minp = np.minimum(np.minimum(gmin_p, gmin_p.T), np.float32(1.0))
-        gp_maxp = np.maximum(np.maximum(gmax_p, gmax_p.T), np.float32(1.0))
-        with np.errstate(invalid="ignore"):
-            gp_mean = np.where(gp_cnt > 0, gp_sum / np.maximum(gp_cnt, 1), 0.0)
-        stats["genome_pairs"] = {
-            "mean_score": gp_mean.round(6).tolist(),
-            "min_score": gp_min.astype(float).tolist(),
-            "max_score_lt1": ims.astype(float).tolist(),
-            "min_perc": gp_minp.astype(float).tolist(),
-            "max_perc": gp_maxp.astype(float).tolist(),
-            "accepted_cells": gp_cnt.tolist(),
+    with phase("host.stats"):
+        # genome-pair statistics (net.py build_network's aggregates,
+        # Pangenes.java:130-143): min/max families from the device over
+        # the canonical accepted cells, mirrored as (m op m.T); mean/count
+        # here
+        stats = {
+            "n_cells": n_valid,
+            "n_accepted_inter_cells": 2 * n_acc_canonical,
+            "n_inter_edges": int(e_acc.sum()),
+            "n_intra_edges": int((~e_acc).sum()),
+            "n_edges": len(edges),
+            "n_joined_pairs": int(
+                np.minimum(counts_h, K)[grow_v < G].sum(dtype=np.int64)),
+            "device_bbh": True,
+            "ring_extract": use_ring,
+            "device": str(dev),
+            "n_devices": shards.n,
+            "phase_s": None,  # below, once every sub-phase has closed
+            "candidate_cap_final": int(K),
+            "bound_bits_mode": bool(use_T),
+            "edge_cap_initial": int(edge_cap_initial),
+            # backend "xla" has no flat pair list and no join table (None,
+            # as in the JAX package)
+            "pair_cap": int(pair_cap) if use_kernel else None,
+            "lane_D": int(runner.lane_D) if use_kernel else None,
+            "join_kernel": runner.join_kernel if use_kernel else None,
+            # only when the lane2 table exists: under lane or roll,
+            # building it would cost memory for nothing (and cannot pack
+            # when the input forced the lane fallback)
+            "lane_table_cols": (
+                int(runner.all_lane2.shape[1])
+                if use_kernel and runner.join_kernel == "lane2" else None
+            ),
+            "edge_cap": int(edge_cap),
         }
-    _mark("host.stats")
+        if shards.n > 1 or shards.group is not None:
+            stats["pairs_per_shard"] = per_shard.tolist()
+        if n_gen <= 128 and not _no_stats() and n_acc_canonical > 0:
+            acc_i = e_row[e_acc]
+            acc_j = e_col[e_acc]
+            asc = scores[e_acc].astype(np.float64)
+            sg = np.asarray(index.seq_genome)
+            bins = sg[acc_i] * n_gen + sg[acc_j]
+            S = np.bincount(bins, weights=asc, minlength=n_gen * n_gen)
+            C = np.bincount(bins, minlength=n_gen * n_gen)
+            gp_sum = S.reshape(n_gen, n_gen)
+            gp_sum = gp_sum + gp_sum.T
+            gp_cnt = C.reshape(n_gen, n_gen).astype(np.int64)
+            gp_cnt = gp_cnt + gp_cnt.T
+            # device matrices carry the neutrals (+inf / 0) at empty
+            # entries; the reference inits everything at 1.0, and
+            # max_perc's init dominates (perc fractions <= 1.0 — the
+            # host-path quirk)
+            gp_min = np.minimum(np.minimum(gmin_s, gmin_s.T),
+                                np.float32(1.0))
+            gp_minp = np.minimum(np.minimum(gmin_p, gmin_p.T),
+                                 np.float32(1.0))
+            gp_maxp = np.maximum(np.maximum(gmax_p, gmax_p.T),
+                                 np.float32(1.0))
+            with np.errstate(invalid="ignore"):
+                gp_mean = np.where(gp_cnt > 0,
+                                   gp_sum / np.maximum(gp_cnt, 1), 0.0)
+            stats["genome_pairs"] = {
+                "mean_score": gp_mean.round(6).tolist(),
+                "min_score": gp_min.astype(float).tolist(),
+                "max_score_lt1": ims.astype(float).tolist(),
+                "min_perc": gp_minp.astype(float).tolist(),
+                "max_perc": gp_maxp.astype(float).tolist(),
+                "accepted_cells": gp_cnt.tolist(),
+            }
+    # each sub-phase's seconds, and the seconds the host spent blocked on
+    # the card over all of them
+    stats["phase_s"] = {sp.name: sp.seconds for sp in spans}
+    stats["phase_s"]["wait"] = sum(sp.counters.get("wait_s", 0.0)
+                                   for sp in spans)
     return edges, stats

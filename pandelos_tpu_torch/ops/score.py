@@ -35,12 +35,12 @@ any Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.config import PipelineConfig
 from pandelos_tpu_torch.device import (
     configure_numerics,
@@ -224,7 +224,8 @@ def _extract_nonzero_core(inter, perc, tr, grow, row_lens, col_lens,
         (inter > 0) & valid & (cols != grow_l) & (cols < n_true)
         & (grow_l < n_true)
     )
-    (idx,) = torch.nonzero(mask.reshape(-1), as_tuple=True)
+    with tracing.blocked():
+        (idx,) = torch.nonzero(mask.reshape(-1), as_tuple=True)
     count = int(idx.shape[0])
     idx = idx[:cap]
     return (
@@ -253,7 +254,8 @@ def _score_all_blocks(all_ids, all_counts, col_lens, perm_pad, starts,
         row_lens = col_lens[torch.clamp(idxs, max=col_lens.shape[0] - 1)]
         cells, count = _extract_nonzero_core(
             inter, perc, tr, idxs, row_lens, col_lens, cap, n_true, k2)
-        out.append(([x.cpu().numpy() for x in cells], count))
+        with tracing.blocked():
+            out.append(([x.cpu().numpy() for x in cells], count))
     return out
 
 
@@ -384,12 +386,12 @@ def compute_cells_xla(index: KmerIndex,
     card unless ``config.device`` (or ``device``) says ``"cpu"``: the
     counterpart of the JAX package's ``compute_cells_xla``, with its
     per-block extraction cap and rerun, and its host corrections.
-    ``capture``, when given, receives the host-clock seconds of the
-    scoring pass (``dense_pass_s``: padding, upload, every row block's
-    matmuls, compaction and fetch), its matmul work
+    Its two parts are spans of :mod:`pandelos_tpu_torch.tracing`:
+    ``score.dense_pass`` (padding, upload, every row block's matmuls,
+    compaction and fetch) and ``score.host_corrections``.  ``capture``,
+    when given, receives the pass's matmul work
     (``dense_matmul_flops``: 2 R V C per product, ``2 + level_cap``
-    products per row block and column, reruns included) and the seconds
-    of the host corrections (``host_corrections_s``)."""
+    products per row block and column, reruns included)."""
     config = config or PipelineConfig()
     G = index.n_sequences
     if G == 0 or index.profile_ids.size == 0:
@@ -398,63 +400,61 @@ def compute_cells_xla(index: KmerIndex,
         return ScoreCells(z32, z32, z64, z64, z64)
     dev = resolve_device(device if device is not None else config.device)
     configure_numerics()
-    t0 = time.monotonic()
+    with tracing.span("score.dense_pass"):
+        row_block = min(config.row_block, _round_up(G, 8))
+        col_block = min(config.col_block, _round_up(G, 128))
+        padded = pad_profiles(index, row_block, col_block)
+        G_pad = padded.ids.shape[0]
+        all_ids = torch.from_numpy(padded.ids).to(dev)
+        all_counts = torch.from_numpy(padded.counts).to(dev)
+        cap = config.nnz_cap_per_row * row_block
+        lens_pad = np.zeros(G_pad, dtype=np.float32)
+        lens_pad[:G] = index.kseq_lengths
+        col_lens = torch.from_numpy(lens_pad).to(dev)
+        widths = np.diff(index.profile_ptr)
 
-    row_block = min(config.row_block, _round_up(G, 8))
-    col_block = min(config.col_block, _round_up(G, 128))
-    padded = pad_profiles(index, row_block, col_block)
-    G_pad = padded.ids.shape[0]
-    all_ids = torch.from_numpy(padded.ids).to(dev)
-    all_counts = torch.from_numpy(padded.counts).to(dev)
-    cap = config.nnz_cap_per_row * row_block
-    lens_pad = np.zeros(G_pad, dtype=np.float32)
-    lens_pad[:G] = index.kseq_lengths
-    col_lens = torch.from_numpy(lens_pad).to(dev)
-    widths = np.diff(index.profile_ptr)
+        rows_out, cols_out, i_out, p_out, t_out = [], [], [], [], []
+        flops = 0.0
 
-    rows_out, cols_out, i_out, p_out, t_out = [], [], [], [], []
-    flops = 0.0
+        def put(cells):
+            r, c, iv, pv, tv = cells
+            rows_out.append(r.astype(np.int32))
+            cols_out.append(c.astype(np.int32))
+            i_out.append(iv.astype(np.int64))
+            p_out.append(pv.astype(np.int64))
+            t_out.append(tv.astype(np.int64))
 
-    def put(cells):
-        r, c, iv, pv, tv = cells
-        rows_out.append(r.astype(np.int32))
-        cols_out.append(c.astype(np.int32))
-        i_out.append(iv.astype(np.int64))
-        p_out.append(pv.astype(np.int64))
-        t_out.append(tv.astype(np.int64))
+        def run_bucket(w_row, perm_pad, starts, local_cap):
+            nonlocal flops
+            n_cols = (G_pad // col_block) * col_block
+            flops += (2.0 * row_block * row_block * w_row * n_cols
+                      * (2 + config.level_cap) * len(starts))
+            return _score_all_blocks(
+                all_ids, all_counts, col_lens, perm_pad, starts,
+                vocab_size=index.vocab_size, row_block=row_block, w_row=w_row,
+                col_block=col_block, level_cap=config.level_cap,
+                matmul_dtype=config.matmul_dtype, cap=local_cap, n_true=G,
+                k2=2 * index.k,
+            )
 
-    def run_bucket(w_row, perm_pad, starts, local_cap):
-        nonlocal flops
-        n_cols = (G_pad // col_block) * col_block
-        flops += (2.0 * row_block * row_block * w_row * n_cols
-                  * (2 + config.level_cap) * len(starts))
-        return _score_all_blocks(
-            all_ids, all_counts, col_lens, perm_pad, starts,
-            vocab_size=index.vocab_size, row_block=row_block, w_row=w_row,
-            col_block=col_block, level_cap=config.level_cap,
-            matmul_dtype=config.matmul_dtype, cap=local_cap, n_true=G,
-            k2=2 * index.k,
-        )
-
-    for w_row, perm_pad, starts in _width_buckets(
-        widths, row_block, padded.width
-    ):
-        blocks = run_bucket(w_row, perm_pad, starts, cap)
-        # a block past the cap lost cells: it is rerun alone with its
-        # exact count rounded up to the row block (those cells come
-        # first, as in the JAX package)
-        for bi, (_, count) in enumerate(blocks):
-            if count > cap:
-                ((cells, _),) = run_bucket(
-                    w_row, perm_pad, starts[bi: bi + 1],
-                    _round_up(count, row_block),
-                )
-                put(cells)
-        for cells, count in blocks:
-            if count <= cap:
-                put(cells)
+        for w_row, perm_pad, starts in _width_buckets(
+            widths, row_block, padded.width
+        ):
+            blocks = run_bucket(w_row, perm_pad, starts, cap)
+            # a block past the cap lost cells: it is rerun alone with its
+            # exact count rounded up to the row block (those cells come
+            # first, as in the JAX package)
+            for bi, (_, count) in enumerate(blocks):
+                if count > cap:
+                    ((cells, _),) = run_bucket(
+                        w_row, perm_pad, starts[bi: bi + 1],
+                        _round_up(count, row_block),
+                    )
+                    put(cells)
+            for cells, count in blocks:
+                if count <= cap:
+                    put(cells)
     if capture is not None:
-        capture["dense_pass_s"] = time.monotonic() - t0
         capture["dense_matmul_flops"] = flops
 
     row = np.concatenate(rows_out)
@@ -465,49 +465,47 @@ def compute_cells_xla(index: KmerIndex,
 
     # --- host corrections (rare entries above the clipping thresholds);
     # the count-clip ones for bf16 only, as in the JAX package
-    t0 = time.monotonic()
-    lvl_corr = _host_level_cap_corrections(index, config.level_cap)
-    cnt_corr = (
-        _host_count_clip_corrections(index)
-        if config.matmul_dtype == "bf16"
-        else {}
-    )
-    if lvl_corr or cnt_corr:
-        cell_index = {
-            (int(a), int(b)): n for n, (a, b) in enumerate(zip(row, col))
-        }
-        extra_rows = []
-        for key in set(lvl_corr) | set(cnt_corr):
-            n = cell_index.get(key)
-            if n is not None:
-                if key in lvl_corr:
-                    inter[n] += lvl_corr[key]
-                if key in cnt_corr:
-                    dp, dt = cnt_corr[key]
-                    perc[n] += dp
-                    tr[n] += dt
-            else:
-                # the cell was dropped by the device's validity filter on
-                # CLIPPED counters; recompute it exactly: it may be valid
-                # unclipped (perc corrections only raise perc).  Level-cap
-                # corrections alone cannot change validity.
-                if key not in cnt_corr:
-                    continue
-                i0, j0 = key
-                ti, tp, tt = _host_compute_cell(index, i0, j0)
-                a = int(index.kseq_lengths[i0])
-                b = int(index.kseq_lengths[j0])
-                if 2 * index.k * tp >= a or 2 * index.k * tt >= b:
-                    extra_rows.append((i0, j0, ti, tp, tt))
-        if extra_rows:
-            er = np.asarray(extra_rows, dtype=np.int64)
-            row = np.concatenate([row, er[:, 0].astype(np.int32)])
-            col = np.concatenate([col, er[:, 1].astype(np.int32)])
-            inter = np.concatenate([inter, er[:, 2]])
-            perc = np.concatenate([perc, er[:, 3]])
-            tr = np.concatenate([tr, er[:, 4]])
-    if capture is not None:
-        capture["host_corrections_s"] = time.monotonic() - t0
+    with tracing.span("score.host_corrections"):
+        lvl_corr = _host_level_cap_corrections(index, config.level_cap)
+        cnt_corr = (
+            _host_count_clip_corrections(index)
+            if config.matmul_dtype == "bf16"
+            else {}
+        )
+        if lvl_corr or cnt_corr:
+            cell_index = {
+                (int(a), int(b)): n for n, (a, b) in enumerate(zip(row, col))
+            }
+            extra_rows = []
+            for key in set(lvl_corr) | set(cnt_corr):
+                n = cell_index.get(key)
+                if n is not None:
+                    if key in lvl_corr:
+                        inter[n] += lvl_corr[key]
+                    if key in cnt_corr:
+                        dp, dt = cnt_corr[key]
+                        perc[n] += dp
+                        tr[n] += dt
+                else:
+                    # the cell was dropped by the device's validity filter on
+                    # CLIPPED counters; recompute it exactly: it may be valid
+                    # unclipped (perc corrections only raise perc).  Level-cap
+                    # corrections alone cannot change validity.
+                    if key not in cnt_corr:
+                        continue
+                    i0, j0 = key
+                    ti, tp, tt = _host_compute_cell(index, i0, j0)
+                    a = int(index.kseq_lengths[i0])
+                    b = int(index.kseq_lengths[j0])
+                    if 2 * index.k * tp >= a or 2 * index.k * tt >= b:
+                        extra_rows.append((i0, j0, ti, tp, tt))
+            if extra_rows:
+                er = np.asarray(extra_rows, dtype=np.int64)
+                row = np.concatenate([row, er[:, 0].astype(np.int32)])
+                col = np.concatenate([col, er[:, 1].astype(np.int32)])
+                inter = np.concatenate([inter, er[:, 2]])
+                perc = np.concatenate([perc, er[:, 3]])
+                tr = np.concatenate([tr, er[:, 4]])
 
     return ScoreCells(
         row.astype(np.int32), col.astype(np.int32), inter, perc, tr

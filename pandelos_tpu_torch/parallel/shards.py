@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.parallel.distributed import first_card, world
 
 
@@ -134,7 +135,7 @@ class ShardGroup:
             return m
         t = torch.tensor([m], dtype=torch.int64, device=self.devices[0])
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
-        return int(t.item())
+        return tracing.to_int(t)
 
     def ring_shift(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """JAX's ``ppermute`` i -> (i - 1) mod n: global shard i receives
@@ -158,11 +159,14 @@ class ShardGroup:
 
     def fetch(self, ts: Sequence[torch.Tensor], axis: int = 0) -> np.ndarray:
         """A sharded array (the local shards' tensors) to host NumPy as
-        the global concatenation along ``axis``, on every process."""
+        the global concatenation along ``axis``, on every process; the
+        copy to the host counts as a wait on the card (``tracing``)."""
         if axis:
             ts = [t.movedim(axis, 0).contiguous() for t in ts]
-            return np.moveaxis(self._gather_first(ts).cpu().numpy(), 0, axis)
-        return self._gather_first(ts).cpu().numpy()
+        whole = self._gather_first(ts)
+        with tracing.blocked():
+            out = whole.cpu().numpy()
+        return np.moveaxis(out, 0, axis) if axis else out
 
     def fetch_many(self, *arrays) -> list:
         """:meth:`fetch` of several sharded arrays.  Every shard's work is
@@ -179,12 +183,15 @@ class ShardGroup:
 
     def map(self, fn, items) -> list:
         """``[fn(x) for x in items]``, one item a local shard: in a thread
-        each when the local shards sit on distinct cards."""
+        each when the local shards sit on distinct cards (the threads'
+        waits on their cards are added to the current spans, summed)."""
         if not self._parallel():
             return [fn(x) for x in items]
         if self._pool is None:
             self._pool = ThreadPoolExecutor(self.n_local)
-        return list(self._pool.map(fn, items))
+        done = list(self._pool.map(tracing.worker(fn), items))
+        tracing.add_waits([tally for _, tally in done])
+        return [value for value, _ in done]
 
     def spmd(self, programs) -> list:
         """Run the local shards' programs (generators, one per local

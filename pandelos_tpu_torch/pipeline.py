@@ -2,10 +2,10 @@
 
 Replaces the reference's bash orchestration (``pandelos.sh:60-81``) which
 chains four OS processes through temp files and stdout scraping.  Here every
-phase is a function call with validated results, per-phase timing, and
-restartable checkpoints (the reference's only de-facto checkpoint is the
-``.net`` file, ``pandelos.sh:73-76``; we persist both the index and the
-network).
+phase is a function call with validated results, a span of the job's
+trace (:mod:`pandelos_tpu_torch.tracing`), and restartable checkpoints
+(the reference's only de-facto checkpoint is the ``.net`` file,
+``pandelos.sh:73-76``; we persist both the index and the network).
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.cluster import cluster_network, families_as_names
 from pandelos_tpu_torch.config import (
     PipelineConfig,
@@ -44,6 +44,8 @@ class PipelineResult:
     clus_lines: List[str]
     phase_times: dict
     stats: dict
+    # the job's closed spans (tracing.Span.record), in the order they opened
+    spans: List[dict] = dataclasses.field(default_factory=list)
 
 
 def compute_cells(
@@ -76,68 +78,69 @@ def compute_cells(
                                    devices=devices)
 
 
-def _score_and_network(ds, index, k, config, times, capture, devices):
-    """The score and network phases of ``run_pipeline``: the network of
-    the index with the backend of ``config``, their seconds in
-    ``times``."""
+def _score_and_network(ds, index, k, config, capture, devices):
+    """The ``score`` span of ``run_pipeline`` and, off the device path,
+    its ``network`` span: the network of the index with the backend of
+    ``config``."""
     backend = resolve_backend(config.backend)
-    net = None
     if backend == "reference":
         # whole-run transcription twin (reference.py): its own cells from
         # the raw sequences -> per-cell f32 finalize -> Pangenes.java dict
         # BBH, on the host.  Clustering below also takes its netclu_ng.py
         # transcription.
-        from pandelos_tpu_torch import reference as refmod
+        with tracing.span("score"):
+            from pandelos_tpu_torch import reference as refmod
 
-        t = time.monotonic()
-        cells = refmod.compute_cells_reference(ds.sequences, k)
-        times["score"] = time.monotonic() - t
-        t = time.monotonic()
-        fcells = refmod.finalize_cells_reference(cells, index.kseq_lengths, k)
-        edges, rstats = refmod.build_network_reference(
-            fcells, index.seq_genome, ds.n_genomes
-        )
-        net = NetworkResult(
-            edges=edges,
-            n_inter_edges=rstats["n_inter_edges"],
-            n_intra_edges=rstats["n_intra_edges"],
-            genome_max=np.zeros((0, 0), np.float32),
-            inter_max_score=np.zeros((0, 0), np.float32),
-            stats=rstats,
-        )
-        times["network"] = time.monotonic() - t
-    elif backend in ("cuda", "xla") and config.device_bbh is not False:
-        from pandelos_tpu_torch.ops.net_device import compute_network_device
-
-        t = time.monotonic()
-        out = compute_network_device(index, config, capture=capture,
-                                     devices=devices)
-        if out is not None:
-            edges, dstats = out
-            times["score"] = time.monotonic() - t
-            times["network"] = 0.0
-            net = NetworkResult(
+            cells = refmod.compute_cells_reference(ds.sequences, k)
+        with tracing.span("network"):
+            fcells = refmod.finalize_cells_reference(
+                cells, index.kseq_lengths, k)
+            edges, rstats = refmod.build_network_reference(
+                fcells, index.seq_genome, ds.n_genomes
+            )
+            return NetworkResult(
                 edges=edges,
-                n_inter_edges=dstats.get("n_inter_edges", len(edges)),
-                n_intra_edges=dstats.get("n_intra_edges", 0),
+                n_inter_edges=rstats["n_inter_edges"],
+                n_intra_edges=rstats["n_intra_edges"],
                 genome_max=np.zeros((0, 0), np.float32),
                 inter_max_score=np.zeros((0, 0), np.float32),
-                stats=dstats,
+                stats=rstats,
             )
-    if net is None:
-        t = time.monotonic()
+    with tracing.span("score") as sp:
+        if backend in ("cuda", "xla") and config.device_bbh is not False:
+            from pandelos_tpu_torch.ops.net_device import (
+                compute_network_device,
+            )
+
+            out = compute_network_device(index, config, capture=capture,
+                                         devices=devices)
+            if out is not None:
+                edges, dstats = out
+                return NetworkResult(
+                    edges=edges,
+                    n_inter_edges=dstats.get("n_inter_edges", len(edges)),
+                    n_intra_edges=dstats.get("n_intra_edges", 0),
+                    genome_max=np.zeros((0, 0), np.float32),
+                    inter_max_score=np.zeros((0, 0), np.float32),
+                    stats=dstats,
+                )
+            sp.set("engine.fallback", 1)  # the host cells path takes over
         cells = compute_cells(index, config, capture=capture,
                               devices=devices)
-        times["score"] = time.monotonic() - t
-
-        t = time.monotonic()
+    with tracing.span("network"):
         finalized = finalize_scores(cells, index.kseq_lengths, k)
-        net = build_network(
+        return build_network(
             finalized, index.seq_genome, ds.n_genomes, ds.n_sequences
         )
-        times["network"] = time.monotonic() - t
 
-    return net
+
+def _phase_times(spans: List[dict]) -> dict:
+    """``phase_times`` from the job's closed spans; the device path has
+    no ``network`` span, and its ``network`` reads 0.0."""
+    times = tracing.phase_times(spans)
+    if "score" in times:
+        times.setdefault("network", 0.0)
+    return times
 
 
 def run_pipeline(
@@ -157,9 +160,17 @@ def run_pipeline(
     ``"oracle"`` always take the cells path; ``"reference"`` runs the
     transcription twin (:mod:`pandelos_tpu_torch.reference`) on the
     host.  ``capture``, when given, receives the index and the engine's
-    join inputs (see ``compute_network_device``) or the dense pass's
-    times.  With ``config.profile_dir`` the score and network phases run
-    under a ``torch.profiler`` trace (:mod:`pandelos_tpu_torch.profiling`).
+    join inputs (see ``compute_network_device``).
+
+    The run is one job of :mod:`pandelos_tpu_torch.tracing`: its
+    top-level spans (``ingest``, ``k_select``, ``index``, ``score``,
+    ``network`` off the device path, ``net_write``, ``cluster``,
+    ``clus_write``, ``report`` when one is written, ``stats``) follow one
+    another from entry to return; the result carries them (``spans``),
+    ``phase_times`` is derived from them, and ``.stats.json`` holds them
+    as its ``"trace"`` block.  With ``config.profile_dir`` the whole job
+    runs under a ``torch.profiler`` trace
+    (:mod:`pandelos_tpu_torch.profiling`).
 
     With ``config.n_devices`` the candidate engine shards its row blocks
     over that many devices (``"cuda"``: cards 0..n-1; ``"cpu"``: CPU
@@ -170,30 +181,43 @@ def run_pipeline(
     explicitly, several on one card if it says so: the testing
     counterpart of JAX's virtual devices, not a user option."""
     config = config or PipelineConfig()
-    check_ported(config)
-    times = {}
-    t0 = time.monotonic()
+    if config.profile_dir:
+        from pandelos_tpu_torch.profiling import profiled
+    else:
+        from contextlib import nullcontext as profiled
+    with profiled(config), tracing.job() as job:
+        return _run_job(job, input_faa, out_prefix, config, dataset,
+                        capture, devices)
 
-    ds = dataset if dataset is not None else read_faa(input_faa)
-    times["ingest"] = time.monotonic() - t0
 
-    t = time.monotonic()
-    k = config.k if config.k is not None else select_k(ds.sequences)
-    times["k_select"] = time.monotonic() - t
+def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
+    with tracing.span("ingest") as sp:
+        check_ported(config)
+        ds = dataset if dataset is not None else read_faa(input_faa)
+        sp.set("sequences", ds.n_sequences)
+        sp.set("genomes", ds.n_genomes)
+        sp.set("residues", sum(map(len, ds.sequences)))
 
-    t = time.monotonic()
-    index = build_index(ds, k=k, only_complexity=config.only_complexity)
-    times["index"] = time.monotonic() - t
-    if capture is not None:
-        capture["index"] = index
+    with tracing.span("k_select") as sp:
+        k = config.k if config.k is not None else select_k(ds.sequences)
+        sp.set("k", k)
 
-    if config.checkpoint_dir:
-        os.makedirs(config.checkpoint_dir, exist_ok=True)
-        index.save(os.path.join(config.checkpoint_dir, "index.npz"))
+    with tracing.span("index") as sp:
+        index = build_index(ds, k=k, only_complexity=config.only_complexity)
+        sp.set("vocab_size", index.vocab_size)
+        sp.set("total_vocab", index.total_vocab)
+        sp.set("kmers", int(np.sum(index.kseq_lengths, dtype=np.int64)))
+        if capture is not None:
+            capture["index"] = index
+        if config.checkpoint_dir:
+            os.makedirs(config.checkpoint_dir, exist_ok=True)
+            index.save(os.path.join(config.checkpoint_dir, "index.npz"))
 
     if config.only_complexity:
         # The -c mode stops after the complexity report (Pangenes.java:33-36).
-        report = index.complexity_report()
+        with tracing.span("stats"):
+            report = index.complexity_report()
+        spans = job.records()
         return PipelineResult(
             k=k,
             n_sequences=ds.n_sequences,
@@ -202,86 +226,95 @@ def run_pipeline(
             families=[],
             singletons=[],
             clus_lines=[],
-            phase_times=times,
+            phase_times=_phase_times(spans),
             stats={"complexity": report},
+            spans=spans,
         )
 
     backend = resolve_backend(config.backend)
-    if config.profile_dir:
-        from pandelos_tpu_torch.profiling import profiled
-    else:
-        from contextlib import nullcontext as profiled
-    with profiled(config):
-        net = _score_and_network(ds, index, k, config, times, capture,
-                                 devices)
+    net = _score_and_network(ds, index, k, config, capture, devices)
 
-    if out_prefix and config.write_net:
-        write_net(out_prefix + ".net", net.edges)
-    if config.checkpoint_dir:
-        write_net(os.path.join(config.checkpoint_dir, "network.net"), net.edges)
+    with tracing.span("net_write") as sp:
+        sp.set("edges", len(net.edges))
+        if out_prefix and config.write_net:
+            write_net(out_prefix + ".net", net.edges)
+            sp.set("bytes", os.path.getsize(out_prefix + ".net"))
+        if config.checkpoint_dir:
+            write_net(os.path.join(config.checkpoint_dir, "network.net"),
+                      net.edges)
 
-    t = time.monotonic()
-    if backend == "reference":
-        from pandelos_tpu_torch.reference import cluster_reference
+    with tracing.span("cluster"):
+        if backend == "reference":
+            from pandelos_tpu_torch.reference import cluster_reference
 
-        clusters = cluster_reference(
-            net.edges, np.asarray(ds.seq_genome), ds.n_sequences
-        )
-    else:
-        clusters = cluster_network(
-            net.edges, np.asarray(ds.seq_genome), ds.n_sequences
-        )
-    fams, singles = families_as_names(clusters, ds.names)
-    lines = family_lines(fams, singles)
-    times["cluster"] = time.monotonic() - t
+            clusters = cluster_reference(
+                net.edges, np.asarray(ds.seq_genome), ds.n_sequences
+            )
+        else:
+            clusters = cluster_network(
+                net.edges, np.asarray(ds.seq_genome), ds.n_sequences
+            )
+        with tracing.span("cluster.assemble"):
+            fams, singles = families_as_names(clusters, ds.names)
+            lines = family_lines(fams, singles)
 
-    if out_prefix and config.write_clus:
-        write_clus(out_prefix + ".clus", lines)
+    with tracing.span("clus_write"):
+        if out_prefix and config.write_clus:
+            write_clus(out_prefix + ".clus", lines)
     if out_prefix and config.write_report:
-        from pandelos_tpu_torch.io.clus import family_report_lines
+        with tracing.span("report"):
+            from pandelos_tpu_torch.io.clus import family_report_lines
 
-        report = family_report_lines(
-            clusters.families, ds.names, ds.descriptions
-        )
-        report += [f"F{{ {ds.names[g]} }}" for g in clusters.singletons]
-        with open(out_prefix + ".report", "w") as fh:
-            fh.write("\n".join(report) + ("\n" if report else ""))
+            report = family_report_lines(
+                clusters.families, ds.names, ds.descriptions
+            )
+            report += [f"F{{ {ds.names[g]} }}" for g in clusters.singletons]
+            with open(out_prefix + ".report", "w") as fh:
+                fh.write("\n".join(report) + ("\n" if report else ""))
 
-    # degree distribution of the similarity network (the reference prints
-    # it after network construction, Pangenes.java:202-219)
-    from pandelos_tpu_torch.io.net import EdgeList
+    with tracing.span("stats"):
+        # degree distribution of the similarity network (the reference
+        # prints it after network construction, Pangenes.java:202-219)
+        from pandelos_tpu_torch.io.net import EdgeList
 
-    _el = EdgeList.from_any(net.edges)
-    ea, eb = _el.a, _el.b
-    deg = np.bincount(ea, minlength=ds.n_sequences)
-    deg += np.bincount(eb[eb != ea], minlength=ds.n_sequences)
-    deg_vals, deg_cnts = np.unique(deg, return_counts=True)
-    degree_distr = {
-        str(int(v)): int(c) for v, c in zip(deg_vals, deg_cnts)
-    }
+        _el = EdgeList.from_any(net.edges)
+        ea, eb = _el.a, _el.b
+        deg = np.bincount(ea, minlength=ds.n_sequences)
+        deg += np.bincount(eb[eb != ea], minlength=ds.n_sequences)
+        deg_vals, deg_cnts = np.unique(deg, return_counts=True)
+        degree_distr = {
+            str(int(v)): int(c) for v, c in zip(deg_vals, deg_cnts)
+        }
 
-    stats = {
-        "k": k,
-        "n_sequences": ds.n_sequences,
-        "n_genomes": ds.n_genomes,
-        "vocab_size": index.vocab_size,
-        "total_vocab": index.total_vocab,
-        "degree_distr": degree_distr,
-        "complexity": index.complexity_report(),
-        "network": net.stats,
-        "n_families": len(clusters.families),
-        "n_singletons": len(clusters.singletons),
-        "component_size_distr": {
-            str(kk): v for kk, v in sorted(clusters.component_size_distr.items())
-        },
-        "family_size_distr": {
-            str(kk): v for kk, v in sorted(clusters.family_size_distr.items())
-        },
-    }
-    if out_prefix:
-        with open(out_prefix + ".stats.json", "w") as fh:
-            json.dump({"stats": stats, "phase_times": times}, fh, indent=2)
+        stats = {
+            "k": k,
+            "n_sequences": ds.n_sequences,
+            "n_genomes": ds.n_genomes,
+            "vocab_size": index.vocab_size,
+            "total_vocab": index.total_vocab,
+            "degree_distr": degree_distr,
+            "complexity": index.complexity_report(),
+            "network": net.stats,
+            "n_families": len(clusters.families),
+            "n_singletons": len(clusters.singletons),
+            "component_size_distr": {
+                str(kk): v
+                for kk, v in sorted(clusters.component_size_distr.items())
+            },
+            "family_size_distr": {
+                str(kk): v
+                for kk, v in sorted(clusters.family_size_distr.items())
+            },
+        }
+        if out_prefix:
+            # the spans closed so far: every one but this
+            spans = job.records()
+            with open(out_prefix + ".stats.json", "w") as fh:
+                json.dump({"stats": stats, "phase_times": _phase_times(spans),
+                           "trace": {"job": job.id, "spans": spans}},
+                          fh, indent=2)
 
+    spans = job.records()
     return PipelineResult(
         k=k,
         n_sequences=ds.n_sequences,
@@ -290,8 +323,9 @@ def run_pipeline(
         families=fams,
         singletons=singles,
         clus_lines=lines,
-        phase_times=times,
+        phase_times=_phase_times(spans),
         stats=stats,
+        spans=spans,
     )
 
 
@@ -299,26 +333,34 @@ def cluster_from_net(
     input_faa: str, net_path: str, out_prefix: Optional[str] = None
 ) -> PipelineResult:
     """Resume clustering from a ``.net`` checkpoint without rescoring — the
-    reference allows rerunning netclu_ng.py on an existing .net."""
+    reference allows rerunning netclu_ng.py on an existing .net.  A job of
+    its own: spans ``ingest`` (the ``.faa`` and the ``.net``),
+    ``cluster`` and ``clus_write``."""
     from pandelos_tpu_torch.io.net import read_net
 
-    ds = read_faa(input_faa)
-    edges = read_net(net_path)
-    t = time.monotonic()
-    clusters = cluster_network(edges, np.asarray(ds.seq_genome), ds.n_sequences)
-    fams, singles = families_as_names(clusters, ds.names)
-    lines = family_lines(fams, singles)
-    times = {"cluster": time.monotonic() - t}
-    if out_prefix:
-        write_clus(out_prefix + ".clus", lines)
-    return PipelineResult(
-        k=0,
-        n_sequences=ds.n_sequences,
-        n_genomes=ds.n_genomes,
-        edges=edges,
-        families=fams,
-        singletons=singles,
-        clus_lines=lines,
-        phase_times=times,
-        stats={},
-    )
+    with tracing.job() as job:
+        with tracing.span("ingest"):
+            ds = read_faa(input_faa)
+            edges = read_net(net_path)
+        with tracing.span("cluster"):
+            clusters = cluster_network(edges, np.asarray(ds.seq_genome),
+                                       ds.n_sequences)
+            with tracing.span("cluster.assemble"):
+                fams, singles = families_as_names(clusters, ds.names)
+                lines = family_lines(fams, singles)
+        with tracing.span("clus_write"):
+            if out_prefix:
+                write_clus(out_prefix + ".clus", lines)
+        spans = job.records()
+        return PipelineResult(
+            k=0,
+            n_sequences=ds.n_sequences,
+            n_genomes=ds.n_genomes,
+            edges=edges,
+            families=fams,
+            singletons=singles,
+            clus_lines=lines,
+            phase_times=_phase_times(spans),
+            stats={},
+            spans=spans,
+        )

@@ -1,19 +1,23 @@
-"""``config.profile_dir``: the score and network phases of a run under
-``torch.profiler``, the counterpart of the JAX package's
-``jax.profiler.trace`` over the same window (it opens after the index
-and closes after the network).
+"""``config.profile_dir``: a whole job, entry to return, under
+``torch.profiler`` (the JAX package's ``jax.profiler.trace`` covers its
+score and network phases only).  While the profiler runs, each span of
+the job (:mod:`pandelos_tpu_torch.tracing`) is also a profiler range
+named ``pandelos.<span>``, so each kernel sits under the span that
+launched it, on one clock; without ``profile_dir`` no range is opened.
 
 The window writes two files into ``profile_dir``:
 
 - ``trace.json``: the Chrome trace (``chrome://tracing`` or Perfetto):
-  host operators, and on the card every kernel and copy;
+  the ``pandelos.*`` ranges, host operators, and on the card every
+  kernel and copy;
 - ``profile_summary.json``: ``window_s`` (the window on the host clock),
-  ``device_busy_s`` (the union of the kernel intervals: overlapping
-  kernels count once), ``busy_share`` (busy over window; one minus it is
-  the card's idle share), ``n_kernel_launches`` and ``top_kernels`` (the
-  ten kernels with the most total time, each with its launches and
-  seconds).  The device fields are null when the run touches no card: a
-  CPU run, and the host-only backends ``oracle`` and ``reference``.
+  ``device_busy_s`` (the union of the intervals of the ``cat ==
+  "kernel"`` events: overlapping kernels count once), ``busy_share``
+  (busy over window; one minus it is the card's idle share),
+  ``n_kernel_launches`` and ``top_kernels`` (the ten kernels with the
+  most total time, each with its launches and seconds).  The device
+  fields are null when the run touches no card: a CPU run, and the
+  host-only backends ``oracle`` and ``reference``.
 
 The profiler records CPU activity always, and CUDA activity when the run
 drives the card; a card run whose trace holds no kernel raises instead
@@ -27,6 +31,7 @@ import json
 import os
 import time
 
+from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.config import resolve_backend
 
 # backends that run on the device of ``config.device``
@@ -118,7 +123,8 @@ def profiled(config):
         # first start in a process takes seconds on a card) is not the
         # run's
         t0 = time.monotonic()
-        yield
+        with tracing.mirrored():
+            yield
         if dev is not None:
             torch.cuda.synchronize(dev)
         window_s = time.monotonic() - t0

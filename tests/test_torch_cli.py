@@ -28,14 +28,30 @@ TIMING = {"phase_times", "phase_s", "elapsed_s", "real_s", "user_s",
 # the port's device-BBH stats also name the torch device, the join kernel
 # and whether the bound-bit matrix ran; the JAX package's have none of them
 PORT_ONLY_NETWORK = {"device", "join_kernel", "bound_bits_mode"}
+# the port's job spans: the timing keys they add (phase_times: the spans
+# past the JAX package's six phases and the dotted children; phase_s: the
+# engine's last sub-phase and its wait on the card) and .stats.json's
+# "trace" block; the JAX package has none of them
+PORT_ONLY_TIMING = {
+    "phase_times": {"net_write", "clus_write", "report", "stats",
+                    "index.encode", "index.native", "cluster.components",
+                    "cluster.split", "cluster.assemble", "score.dense_pass",
+                    "score.host_corrections"},
+    "phase_s": {"host.stats", "wait"},
+    "stats.json": {"trace"},
+}
 
 
 def _masked(x):
     """``x`` with every timing field replaced by its keys (a dict) or a
-    marker (a number): compared by key."""
+    marker (a number): compared by key, the port's own timing keys
+    (``PORT_ONLY_TIMING``) dropped."""
     if isinstance(x, dict):
-        return {k: (sorted(v) if isinstance(v, dict) else "timing")
-                if k in TIMING else _masked(v) for k, v in x.items()}
+        return {k: (sorted(set(v) - PORT_ONLY_TIMING.get(k, set()))
+                    if isinstance(v, dict) else "timing")
+                if k in TIMING else _masked(v) for k, v in x.items()
+                if k not in PORT_ONLY_TIMING["stats.json"]
+                or not isinstance(v, dict)}
     if isinstance(x, list):
         return [_masked(v) for v in x]
     return x

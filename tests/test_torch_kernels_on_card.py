@@ -186,3 +186,37 @@ def test_engine_paths_reproduce_golden_on_card(card, tmp_path, join_kernel,
         assert filecmp.cmp(prefix + suffix,
                            os.path.join(GOLDEN, "synth_small" + suffix),
                            shallow=False), suffix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "xla"])
+def test_engine_never_synchronises_the_card(card, monkeypatch, backend):
+    """The device engine's spans time its sub-phases without draining
+    the card's queue: ``torch.cuda.synchronize`` is never called, and
+    ``phase_s`` holds every sub-phase and the host's wait on the card."""
+    from pandelos_tpu_torch.index import build_index
+    from pandelos_tpu_torch.io.faa import read_faa
+    from pandelos_tpu_torch.ops.net_device import compute_network_device
+
+    index = build_index(read_faa(os.path.join(GOLDEN, "synth_small.faa")))
+    config = PipelineConfig(row_block=16, col_block=128, candidate_cap=64,
+                            backend=backend)
+    compute_network_device(index, config)  # builds and loads the kernels
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    _, stats = compute_network_device(index, config)
+    assert calls == []
+    names = ["setup.pad_profiles", "setup.runner", "setup.signatures",
+             "extract", "flatten_join", "bbh", "fetch", "host.edges",
+             "host.stats"]
+    if backend == "xla":
+        names.remove("flatten_join")
+    assert list(stats["phase_s"]) == names + ["wait"]
+    assert 0 < stats["phase_s"]["wait"] <= sum(
+        stats["phase_s"][n] for n in names)

@@ -47,11 +47,34 @@ def test_profiled_run_writes_trace_and_keeps_outputs(tmp_path, backend):
     with open(os.path.join(pdir, "profile_summary.json")) as fh:
         summary = json.load(fh)
     assert summary["trace"] == "trace.json"
-    # the window covers the score and network phases and no more
-    assert 0 < summary["window_s"] <= (res.phase_times["score"]
-                                       + res.phase_times["network"] + 1.0)
+    # the window covers the whole job, from its first span to its last
+    job_s = (res.spans[-1]["end_ns"] - res.spans[0]["start_ns"]) / 1e9
+    assert job_s <= summary["window_s"] <= job_s + 1.0
     for f in DEVICE_FIELDS:
         assert summary[f] is None
+
+
+def test_profiled_run_writes_the_job_spans(tmp_path):
+    """Each span of the job is a ``pandelos.<span>`` range of the trace,
+    from ``ingest`` to ``stats``, each inside its parent's range."""
+    pdir = str(tmp_path / "trace")
+    res = run_pipeline(FAA, str(tmp_path / "p"), _cfg(profile_dir=pdir))
+    with open(os.path.join(pdir, "trace.json")) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("name", "").startswith("pandelos.")]
+    assert sorted(e["name"] for e in events) == sorted(
+        "pandelos." + s["name"] for s in res.spans)
+    tops = [s["name"] for s in res.spans if s["parent"] is None]
+    first = min(events, key=lambda e: e["ts"])
+    last = max(events, key=lambda e: e["ts"] + e["dur"])
+    assert (first["name"], last["name"]) == ("pandelos.ingest",
+                                            "pandelos.stats")
+    assert (tops[0], tops[-1]) == ("ingest", "stats")
+    (index,) = [e for e in events if e["name"] == "pandelos.index"]
+    (native,) = [e for e in events if e["name"] == "pandelos.index.native"]
+    assert index["ts"] <= native["ts"]
+    assert native["ts"] + native["dur"] <= index["ts"] + index["dur"]
 
 
 def _trace(path, kernels):
