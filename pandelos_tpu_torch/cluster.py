@@ -17,8 +17,9 @@ Kept on host: components that need GN splitting are small, and the
 reference's output depends on networkx's exact unweighted girvan_newman
 behaviour, so we call the same library function.  networkx is imported only on the
 branch that runs without the native core: the Girvan-Newman split
-normally goes through the C++ Brandes core, and a machine without
-networkx runs the whole path.
+normally runs every colliding component's recursion in one native call
+(``pt_gn_families``), and a machine without networkx runs the whole
+path.
 """
 
 from __future__ import annotations
@@ -212,6 +213,67 @@ def _split_colliding_native(
     return result
 
 
+def _split_all_native(comp_ids, nodes, node_starts, seu, sev, edge_starts,
+                      order_rank, seq_genome, n_total, n_workers):
+    """Every colliding component's split in one ``pt_gn_families`` call
+    on ``n_workers`` native threads: ``(c, its communities, its own
+    seconds, its split levels)`` per component, or None (CPython's set
+    order not replayed, or the call failed) for the Python-driven pool.
+    Component c's nodes are ``nodes[node_starts[c]:node_starts[c+1]]``,
+    its edges ``(seu, sev)[edge_starts[c]:edge_starts[c+1]]`` in ``.net``
+    order."""
+    from pandelos_tpu_torch.native.loader import (native_gn_families,
+                                                  pyset_order_ok)
+
+    if not pyset_order_ok():
+        return None
+    ids = np.asarray(comp_ids, dtype=np.int64)
+    offsets = []
+    for starts in (node_starts, edge_starts):
+        counts = starts[ids + 1] - starts[ids]
+        offsets.append(np.concatenate([[0], np.cumsum(counts)]))
+    members = np.concatenate(
+        [nodes[node_starts[c]:node_starts[c + 1]] for c in comp_ids])
+    eidx = np.concatenate(
+        [np.arange(edge_starts[c], edge_starts[c + 1]) for c in comp_ids])
+    got = native_gn_families(
+        n_total, members, offsets[0], seu[eidx], sev[eidx], offsets[1],
+        order_rank, seq_genome, n_workers)
+    if got is None:
+        return None
+    return list(zip(comp_ids, got.families, got.seconds.tolist(),
+                    got.levels.tolist()))
+
+
+def _split_pool(comp_ids, nodes, node_starts, seu, sev, edge_starts,
+                split_component, n_sequences, n_workers):
+    """The Python-driven split: a pool of ``n_workers`` threads runs
+    ``split_component`` (one ``pt_gn_split`` call per level, the GIL
+    held between them) per component; the same tuples as
+    :func:`_split_all_native`, None for a component's communities on a
+    native miss."""
+    def job(c):
+        """(c, its communities, the call's own seconds, its native split
+        calls): worker threads open no spans."""
+        t = time.perf_counter()
+        lo, hi = node_starts[c], node_starts[c + 1]
+        el, eh = edge_starts[c], edge_starts[c + 1]
+        calls = [0]
+        coms = split_component(
+            nodes[lo:hi], seu[el:eh], sev[el:eh],
+            np.full(n_sequences, -1, dtype=np.int64),
+            np.zeros(n_sequences, dtype=bool), calls,
+        )
+        return c, coms, time.perf_counter() - t, calls[0]
+
+    if n_workers > 1:
+        import concurrent.futures as cf
+
+        with cf.ThreadPoolExecutor(n_workers) as pool:
+            return list(pool.map(job, comp_ids))
+    return [job(c) for c in comp_ids]
+
+
 def cluster_network(
     edges: Sequence[Tuple[int, int, float]],
     seq_genome: np.ndarray,
@@ -338,12 +400,14 @@ def cluster_network(
                 seq_genome, pos_scratch, bool_scratch, calls,
             )
 
-        # colliding components are independent jobs; the C++ Brandes core
-        # releases the GIL for the duration of each pt_gn_split call, so a
-        # small thread pool overlaps them (the Java analogue is the reference
-        # running netclu once, single-threaded — this phase parallelism has
-        # no ordering effect because each family list is derived per
-        # component and .clus lines are sorted on write)
+        # colliding components are independent jobs: one native call
+        # splits them all on its own threads (pt_gn_families), the GIL
+        # released throughout; where CPython's set order cannot be
+        # replayed, a thread pool drives one pt_gn_split call per level
+        # from Python (the Java analogue is the reference running netclu
+        # once, single-threaded — this phase parallelism has no ordering
+        # effect because each family list is derived per component and
+        # .clus lines are sorted on write)
         comp_ids = [
             c for c in range(n_comp)
             if node_starts[c + 1] > node_starts[c] and comp_coll[c] > 0
@@ -353,32 +417,19 @@ def cluster_network(
         sp.set("colliding", len(comp_ids))
 
     with tracing.span("cluster.split", split_calls=0, split_thread_s=0.0,
-                      threads=0) as sp:
+                      threads=0, native_components=0) as sp:
         if comp_ids and native_available():
-            import concurrent.futures as cf
-
             n_workers = min(len(comp_ids), os.cpu_count() or 1)
-
-            def job(c):
-                """(c, its communities, the call's own seconds, its
-                native split calls): worker threads open no spans."""
-                t = time.perf_counter()
-                lo, hi = node_starts[c], node_starts[c + 1]
-                el, eh = edge_starts[c], edge_starts[c + 1]
-                idx = order_e[el:eh]
-                calls = [0]
-                coms = _split_component(
-                    nodes_sorted[lo:hi], ea2[idx], eb2[idx],
-                    np.full(n_sequences, -1, dtype=np.int64),
-                    np.zeros(n_sequences, dtype=bool), calls,
-                )
-                return c, coms, time.perf_counter() - t, calls[0]
-
-            if n_workers > 1:
-                with cf.ThreadPoolExecutor(n_workers) as pool:
-                    done = list(pool.map(job, comp_ids))
+            # nodes and edges by component: c's are [starts[c], starts[c+1])
+            by_comp = (nodes_sorted, node_starts, ea2[order_e], eb2[order_e],
+                       edge_starts)
+            done = _split_all_native(comp_ids, *by_comp, order_rank,
+                                     seq_genome, n_total, n_workers)
+            if done is not None:
+                sp.set("native_components", len(done))
             else:
-                done = [job(c) for c in comp_ids]
+                done = _split_pool(comp_ids, *by_comp, _split_component,
+                                   n_sequences, n_workers)
             for c, coms, secs, calls in done:
                 split_results[c] = coms
                 sp.add("split_thread_s", secs)

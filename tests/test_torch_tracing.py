@@ -141,6 +141,7 @@ def test_clustering_pool_is_counted():
     split = by["cluster.split"]["counters"]
     assert comps["components"] > comps["colliding"] > 0
     assert split["split_calls"] >= comps["colliding"]
+    assert split["native_components"] == comps["colliding"]
     assert split["threads"] >= 1
     assert 0 < split["split_thread_s"]
     assert res.phase_times["cluster.split"] <= res.phase_times["cluster"]
