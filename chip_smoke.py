@@ -904,7 +904,7 @@ def main() -> int:
         net = res.stats["network"]
         if n6["lane2"] < 1 or n6["lane"] or n6["roll"]:
             raise AssertionError(f"main path launches {n6}: lane2 only")
-        if native["build_index"] < 1 or native["gn_split"] < 1:
+        if native["build_index"] < 1 or native["gn_families"] < 1:
             raise AssertionError(f"native cores unused: {native}")
         got6 = check_targets(MAIN, res)
         log(6, f"{MAIN} .net/.clus byte-identical to golden; n_cells "

@@ -74,12 +74,14 @@ class PipelineConfig:
     nnz_cap_per_row: int = 512
     # --- candidate engine (ops/candidate.py)
     # Max candidate columns per row on device; the BBH path doubles it
-    # until no row overflows (up to 1024).
+    # until no row overflows (up to 1024; rows past that take its
+    # heavy-row pass).
     candidate_cap: int = 128
     # Run the BBH network construction on device for the "cuda" and
     # "xla" backends (None and True: on; False: the cells path,
-    # compute_cells_candidate + host BBH, which also takes over when a
-    # row's candidates pass MAX_CANDIDATE_CAP).
+    # compute_cells_candidate + host BBH, which also takes over when the
+    # card cannot hold the heavy-row pass of rows whose candidates pass
+    # MAX_CANDIDATE_CAP).
     device_bbh: Optional[bool] = None
     # Exact-join kernel of the "cuda" backend, each a hand-written CUDA
     # kernel: "lane2" (packed

@@ -263,9 +263,13 @@ _BBH_SLOT_BYTES = 256
 # scores
 _FLAT_BBH_SLOT_BYTES = 176
 _PAIR_SLOT_BYTES = 328
-# candidate caps past this go to the host cells path
-# (compute_cells_candidate + host BBH); compute_network_device doubles
-# its cap up to it
+# a slot of the device BBH's heavy-row segment ([rows, valid cells]): its
+# counters and validity, as the in-scan join holds them, and the BBH over
+# them
+_HEAVY_SLOT_BYTES = _JOIN_SLOT_BYTES + _BBH_SLOT_BYTES
+# compute_network_device doubles its main extraction's cap up to this;
+# rows whose candidates pass it take the heavy-row pass (extracted again
+# at their own cap, in chunks of at most the main extraction's slots)
 MAX_CANDIDATE_CAP = 1024
 
 
@@ -523,6 +527,12 @@ class Runner:
             self._T_cache[key] = T
         return T
 
+    def release_bound_bits(self) -> None:
+        """Drop the memoized bound-bit matrices (the largest allocation of
+        a run, [rows, rows] int8): only extraction passes over their
+        layout read them; a later call builds them again."""
+        self._T_cache.clear()
+
     def use_bound_bits(self, starts_len: int, row_block: int) -> bool:
         """T mode: one shard in one process, T within its byte cap.  The
         bound is symmetric, and T's halving reads ``T | T^T``: a
@@ -779,6 +789,7 @@ def memory_model(
     budget_bytes: Optional[float] = None, device=None,
     cand_cap: Optional[int] = None, pair_cap: Optional[int] = None,
     n_devices: Optional[int] = None, ring: Optional[bool] = None,
+    heavy_slots: int = 0,
 ) -> dict:
     """Device-memory accounting of the engine per device, one shard a
     device (shards that share a card share its replicated tensors, so a
@@ -804,6 +815,14 @@ def memory_model(
     pair list, whose length is ``pair_cap`` when a run knows it and else
     its largest value at ``cand_cap`` (every slot holding a pair, rounded
     up to a power of two as :meth:`Runner.pair_capacity` rounds).
+
+    ``heavy_slots``: a shard's slots of the device BBH's heavy-row
+    segment (rows whose candidates pass ``MAX_CANDIDATE_CAP``, as [rows,
+    most valid cells of a row]), which a run knows once its heavy-row
+    pass has joined them: each costs what a slot of the in-scan join and
+    BBH costs (``_HEAVY_SLOT_BYTES``).  The pass itself works in chunks of at
+    most the main extraction's slots at ``cand_cap``, which the
+    candidate work above already bounds.
 
     Ring (``ring``, default as the device BBH decides,
     :func:`~pandelos_tpu_torch.config.ring_engaged`; ``ops/ring.py``): the
@@ -857,10 +876,11 @@ def memory_model(
             max(n_slots, _PAIR_BLOCK))
         return _FLAT_BBH_SLOT_BYTES * n_slots + _PAIR_SLOT_BYTES * pc
 
-    rep_temps = candidate_work(rows_shard * cand_cap, in_scan)
+    heavy = _HEAVY_SLOT_BYTES * heavy_slots
+    rep_temps = candidate_work(rows_shard * cand_cap, in_scan) + heavy
     ring_slots = n_dev * rows_shard * cand_cap
     ring_temps = 4 * ring_slots + 4 * n_dev * rows_shard + candidate_work(
-        ring_slots, False)
+        ring_slots, False) + heavy
     t_bytes = (
         2 * rows * rows
         if not in_scan and t_mode_enabled(n_dev, n_proc, rows) else 0
@@ -888,6 +908,7 @@ def memory_model(
         "join_table_bytes": int(join_table),
         "join_temp_bytes": int(ring_temps if ring else rep_temps),
         "bound_bits_bytes": int(0 if ring else t_bytes),
+        "heavy_bytes": int(heavy),
         "workspace_bytes": int(ws_ring if ring else ws_rep),
         "total_bytes": int(total),
         "replicated_bytes_per_device": int(replicated_total),
@@ -898,22 +919,31 @@ def memory_model(
     }
 
 
+def hbm_model(index: KmerIndex, config, device,
+              ring: Optional[bool] = None, n_devices: Optional[int] = None,
+              heavy_slots: int = 0) -> Optional[dict]:
+    """:func:`memory_model` against the card of ``device``; None where no
+    check applies: on the CPU (host RAM), and under
+    ``PANDELOS_IGNORE_HBM_MODEL=1`` (the model is analytic, not
+    measured)."""
+    if os.environ.get("PANDELOS_IGNORE_HBM_MODEL") == "1":
+        return None
+    if torch.device(device).type != "cuda":
+        return None
+    return memory_model(index, config, device=device, ring=ring,
+                        n_devices=n_devices, heavy_slots=heavy_slots)
+
+
 def check_hbm_fit(index: KmerIndex, config, device,
                   ring: Optional[bool] = None,
                   n_devices: Optional[int] = None) -> None:
     """Fail fast with an actionable message when the engine's footprint
     per device (``ring``: which engine the caller runs; None: the device
     BBH's gate, as in the JAX package) exceeds the card's memory,
-    instead of an out-of-memory error mid-run.
-    ``PANDELOS_IGNORE_HBM_MODEL=1`` overrides (the model is analytic,
-    not measured).  No check on the CPU (host RAM)."""
-    if os.environ.get("PANDELOS_IGNORE_HBM_MODEL") == "1":
-        return
-    if torch.device(device).type != "cuda":
-        return
-    mm = memory_model(index, config, device=device, ring=ring,
-                      n_devices=n_devices)
-    if mm["fits"]:
+    instead of an out-of-memory error mid-run (no check where
+    :func:`hbm_model` makes none)."""
+    mm = hbm_model(index, config, device, ring=ring, n_devices=n_devices)
+    if mm is None or mm["fits"]:
         return
     if mm["ring"]:
         mode = "the ring engine"
@@ -946,9 +976,21 @@ def _host_fallback_rows(index: KmerIndex, rows) -> ScoreCells:
     return cells_of_rows(index, rows)
 
 
-# the largest candidate cap of the device retry; rows past it take the
-# host posting walk
+# the largest candidate cap of the cells path's device retry; rows past
+# it take the host posting walk
 MAX_RETRY_CAP = 4096
+
+
+def rows_layout(rows: np.ndarray, row_block: int, G: int) -> tuple:
+    """(perm_ext, starts) of an extraction over ``rows`` alone: the rows
+    in row blocks, padded with the empty gene ``G``, and one all-padding
+    block after them (the inert block of :meth:`Runner._pad_starts`)."""
+    pad = (-len(rows)) % row_block
+    perm = np.concatenate(
+        [np.asarray(rows, np.int32),
+         np.full(pad + row_block, G, dtype=np.int32)])
+    starts = np.arange(0, len(perm) - row_block, row_block, dtype=np.int32)
+    return perm, starts
 
 
 def _mirrored(i, j, inter, perc, tr):
@@ -1109,13 +1151,7 @@ def compute_cells_candidate(
         rows = np.asarray(sorted(overflow), dtype=np.int32)
         K2 = _round_up(max(overflow.values()), 128)
         if K2 <= MAX_RETRY_CAP:
-            pad = (-len(rows)) % row_block
-            perm2 = np.concatenate(
-                [rows, np.full(pad + row_block, G, dtype=np.int32)]
-            )
-            starts2 = np.arange(
-                0, len(perm2) - row_block, row_block, dtype=np.int32
-            )
+            perm2, starts2 = rows_layout(rows, row_block, G)
             grow, cand, inter, perc, tr, valid, _ = runner.extract_fetched(
                 perm2, starts2, row_block, padded.width, K2, do_join=True,
                 upper_only=use_kernel,

@@ -33,7 +33,7 @@ position for the counterpart-maxima lookups, the ``all_gather`` order.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,6 +54,8 @@ from pandelos_tpu_torch.ops.candidate import (
     build_signatures,
     check_hbm_fit,
     get_runner,
+    hbm_model,
+    rows_layout,
 )
 from pandelos_tpu_torch.ops.exact_div import exact_div_f32
 from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
@@ -131,110 +133,154 @@ def _ims_and_aggregates(lt1_score, acc_cell, score, ap, atp, g_i, g_j,
     )
 
 
-def _emit(emask, accept, gf, cf, e_inter_of, edge_cap: int):
-    """The emitted cells of ``emask`` [P, K] in row-major order, padded
-    to ``edge_cap`` (doubled past the emitted count, as the JAX retry
-    loop does) with row -1: (e_row, e_col, e_inter, e_acc, n_edges,
-    edge_cap).  ``e_inter_of`` maps the flat [P * K] positions to the
-    cells' intersections."""
-    dev = emask.device
-    K = cf.shape[1]
-    with tracing.blocked():
-        (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
-    n_edges = int(eidx.shape[0])
+class _Seg(NamedTuple):
+    """One segment of a shard's rows for the BBH: exact scores [P, K]
+    (0 where the cell is not a valid one with shared k-mers), the row
+    and candidate gene ids, the perc/tr fractions (the scores when the
+    stats are off), the validity that also gates both tests (or None),
+    the ring steps its rows repeat over, and ``inter_of``, which maps
+    flat [P * K] positions to the cells' intersections."""
+
+    score: torch.Tensor
+    gf: torch.Tensor
+    cf: torch.Tensor
+    ap: torch.Tensor
+    atp: torch.Tensor
+    valid: Optional[torch.Tensor]
+    steps: int
+    inter_of: Callable
+
+
+def _emit(parts, edge_cap: int):
+    """The emitted cells of each segment's ``emask`` [P, K] in row-major
+    order, one segment after another, padded to ``edge_cap`` (doubled
+    past the emitted count, as the JAX retry loop does) with row -1:
+    (e_row, e_col, e_inter, e_acc, n_edges, edge_cap).  ``parts``: (emask,
+    accept, gf, cf, inter_of) a segment (see :class:`_Seg`)."""
+    rows, cols, inters, accs = [], [], [], []
+    for emask, accept, gf, cf, inter_of in parts:
+        K = cf.shape[1]
+        with tracing.blocked():
+            (eidx,) = torch.nonzero(emask.reshape(-1), as_tuple=True)
+        rows.append(gf[eidx // K])
+        cols.append(cf.reshape(-1)[eidx])
+        inters.append(inter_of(eidx))
+        accs.append(accept.reshape(-1)[eidx])
+    n_edges = sum(int(r.shape[0]) for r in rows)
     while n_edges > edge_cap:
         edge_cap = _next_pow2(n_edges)
-    fill = torch.full((edge_cap - n_edges,), -1, dtype=eidx.dtype, device=dev)
-    eidx = torch.cat([eidx, fill])
-    safe = torch.clamp(eidx, min=0)
-    found = eidx >= 0
-    e_row = torch.where(found, gf[safe // K], torch.full_like(safe, -1))
-    e_col = cf.reshape(-1)[safe]
-    e_acc = accept.reshape(-1)[safe] & found
-    return e_row, e_col, e_inter_of(safe), e_acc, n_edges, edge_cap
+    fill = edge_cap - n_edges
+
+    def padded(xs, value):
+        return torch.cat(xs + [torch.full((fill,), value, dtype=xs[0].dtype,
+                                          device=xs[0].device)])
+
+    return (padded(rows, -1), padded(cols, 0), padded(inters, 0),
+            padded(accs, False), n_edges, edge_cap)
 
 
-def _bbh_core(score, gf, cf, ap, atp, inv_perm, genome_of, n_gen: int,
-              with_stats: bool, valid=None, steps: int = 1):
-    """The BBH and paralog filters over [P, K] exact scores (0 where the
-    cell is not a valid one with shared k-mers): the per-(row, genome)
-    maxima, the accepted inter-genome cells, the genome-pair matrices and
-    the intra-genome cells (Pangenes.java:98-176).  ``valid``, when
-    given, also gates both tests (the JAX ``_bbh_local`` form).
+def _bbh_core(segs, inv_perm, genome_of, n_gen: int, with_stats: bool):
+    """The BBH and paralog filters over the segments' exact scores (see
+    :class:`_Seg`): the per-(row, genome) maxima, the accepted
+    inter-genome cells, the genome-pair matrices and the intra-genome
+    cells (Pangenes.java:98-176).  A segment holds every candidate of
+    each of its rows: the main extraction's rows, then those of the
+    heavy-row pass (each row's candidates in one segment).
 
     A generator, one shard's program (:meth:`ShardGroup.spmd`): it
     yields at its two collectives, the tiled ``all_gather`` of the
-    per-row maxima (every shard needs every row's for the both-endpoint
-    test, the reference's ``col_max_scores`` merge, library.cpp:515) and
-    the ``pmax``/``pmin`` of the genome-pair matrices.  ``inv_perm`` maps
-    a gene to its GLOBAL row position.  ``steps > 1`` is the ring
-    composition: the rows are ``steps`` copies of the shard's real rows
-    (one a ring step, each holding that step's column shard's
-    candidates), so the maxima and the row threshold merge over the step
-    axis first.  Returns (accept, intra, acc_cell, (ims, gmin_s, gmin_p,
-    gmax_p))."""
+    per-row maxima, every segment's in turn (every shard needs every
+    row's for the both-endpoint test, the reference's ``col_max_scores``
+    merge, library.cpp:515), and the ``pmax``/``pmin`` of the genome-pair
+    matrices.  ``inv_perm`` maps a gene to its GLOBAL row position in
+    that gathered order.  ``steps > 1`` is the ring composition: a
+    segment's rows are ``steps`` copies of its real rows (one a ring
+    step, each holding that step's column shard's candidates), so the
+    maxima and the row threshold merge over the step axis first.
+    Returns ([(accept, intra, acc_cell) a segment], (ims, gmin_s,
+    gmin_p, gmax_p))."""
     G_pad = genome_of.shape[0]
-    P = score.shape[0]
-    SR = P // steps  # real rows of the shard
-    zeros_rk = torch.zeros_like(score)
-    g_i = genome_of[torch.clamp(gf, max=G_pad - 1)].long()
-    g_j = genome_of[cf].long()
-    (M_virt,) = _chunked_genome_multi([(score, "max")], g_j, n_gen)
-    # a real row's maxima span every ring step (column shard)
-    M_row = M_virt if steps == 1 else M_virt.view(steps, SR, n_gen).amax(0)
-    M = yield ("all_gather", M_row)
-    M_grid = M_row if steps == 1 else M_row.repeat(steps, 1)
-    jpos = inv_perm[cf].long()
-    M_at_gj = torch.gather(M_grid, 1, g_j)  # M[row, gen(j)]
-    M_j_gi = M[jpos, g_i[:, None].expand_as(jpos)]  # M[j, genome(i)]
-    inter_genome = g_j != g_i[:, None]
-    base = (score > 0) & (score == M_at_gj) & (score == M_j_gi)
-    if valid is not None:
-        base = base & valid
-    accept = base & inter_genome
-    lt1v = torch.where(accept & (score < 1.0), score, zeros_rk)
-    acc_cell = accept & (cf > gf[:, None])
-    ims, gmin_s, gmin_p, gmax_p = _ims_and_aggregates(
-        lt1v, acc_cell, score, ap, atp, g_i, g_j, n_gen, with_stats
-    )
-    ims, gmax_p = (yield ("pmax", torch.stack([ims, gmax_p]))).unbind(0)
-    gmin_s, gmin_p = (yield ("pmin", torch.stack([gmin_s, gmin_p]))).unbind(0)
-    mats = (ims, gmin_s, gmin_p, gmax_p)
-    thr_cell = ims[g_i[:, None].expand_as(g_j), g_j]
-    row_thr = torch.where(
-        accept, thr_cell, torch.full_like(thr_cell, float("inf"))
-    ).amin(1)
-    if steps > 1:
-        # the threshold spans the row's accepted cells in every ring step
-        row_thr = row_thr.view(steps, SR).amin(0).repeat(steps)
-    intra = (
-        base
-        & (~inter_genome)
-        & (gf[:, None] < cf)
-        & (score >= row_thr[:, None])
-    )
-    return accept, intra, acc_cell, mats
+    pre = []
+    for sg in segs:
+        g_i = genome_of[torch.clamp(sg.gf, max=G_pad - 1)].long()
+        g_j = genome_of[sg.cf].long()
+        (M_virt,) = _chunked_genome_multi([(sg.score, "max")], g_j, n_gen)
+        # a real row's maxima span every ring step (column shard)
+        SR = sg.score.shape[0] // sg.steps
+        M_row = M_virt if sg.steps == 1 else (
+            M_virt.view(sg.steps, SR, n_gen).amax(0))
+        pre.append((g_i, g_j, M_row))
+    M = yield ("all_gather", pre[0][2] if len(pre) == 1
+               else torch.cat([m for _, _, m in pre]))
+    cells, mats = [], None
+    for sg, (g_i, g_j, M_row) in zip(segs, pre):
+        score, gf, cf = sg.score, sg.gf, sg.cf
+        M_grid = M_row if sg.steps == 1 else M_row.repeat(sg.steps, 1)
+        jpos = inv_perm[cf].long()
+        M_at_gj = torch.gather(M_grid, 1, g_j)  # M[row, gen(j)]
+        M_j_gi = M[jpos, g_i[:, None].expand_as(jpos)]  # M[j, genome(i)]
+        inter_genome = g_j != g_i[:, None]
+        base = (score > 0) & (score == M_at_gj) & (score == M_j_gi)
+        if sg.valid is not None:
+            base = base & sg.valid
+        accept = base & inter_genome
+        lt1v = torch.where(accept & (score < 1.0), score,
+                           torch.zeros_like(score))
+        acc_cell = accept & (cf > gf[:, None])
+        m = _ims_and_aggregates(lt1v, acc_cell, score, sg.ap, sg.atp, g_i,
+                                g_j, n_gen, with_stats)
+        mats = m if mats is None else (
+            torch.maximum(mats[0], m[0]), torch.minimum(mats[1], m[1]),
+            torch.minimum(mats[2], m[2]), torch.maximum(mats[3], m[3]))
+        cells.append((base, accept, acc_cell, inter_genome))
+    ims, gmax_p = (yield ("pmax", torch.stack([mats[0], mats[3]]))).unbind(0)
+    gmin_s, gmin_p = (
+        yield ("pmin", torch.stack([mats[1], mats[2]]))).unbind(0)
+    out = []
+    for sg, (g_i, g_j, _), (base, accept, acc_cell, inter_genome) in zip(
+            segs, pre, cells):
+        thr_cell = ims[g_i[:, None].expand_as(g_j), g_j]
+        row_thr = torch.where(
+            accept, thr_cell, torch.full_like(thr_cell, float("inf"))
+        ).amin(1)
+        if sg.steps > 1:
+            # the threshold spans the row's accepted cells in every step
+            SR = sg.score.shape[0] // sg.steps
+            row_thr = row_thr.view(sg.steps, SR).amin(0).repeat(sg.steps)
+        intra = (
+            base
+            & (~inter_genome)
+            & (sg.gf[:, None] < sg.cf)
+            & (sg.score >= row_thr[:, None])
+        )
+        out.append((accept, intra, acc_cell))
+    return out, (ims, gmin_s, gmin_p, gmax_p)
 
 
-def _emit_program(emask, accept, gf, cf, e_inter_of, edge_cap: int):
-    """:func:`_emit` at an edge cap every shard shares: the initial cap,
-    or past the largest shard's emitted count its next power of two (the
-    JAX retry loop's cap).  A generator (one collective)."""
-    n_edges = tracing.to_int(emask.sum())
+def _emit_program(segs, cells, edge_cap: int):
+    """:func:`_emit` of the segments' canonical cells (col > row; intra
+    already is, accept is symmetric) at an edge cap every shard shares:
+    the initial cap, or past the largest shard's emitted count its next
+    power of two (the JAX retry loop's cap).  A generator (one
+    collective)."""
+    parts = [((accept | intra) & (sg.cf > sg.gf[:, None]), accept, sg.gf,
+              sg.cf, sg.inter_of)
+             for sg, (accept, intra, _) in zip(segs, cells)]
+    total = parts[0][0].sum()
+    for part in parts[1:]:
+        total = total + part[0].sum()
+    n_edges = tracing.to_int(total)
     most = yield ("max_int", n_edges)
     if most > edge_cap:
         edge_cap = _next_pow2(most)
-    return _emit(emask, accept, gf, cf, e_inter_of, edge_cap)
+    return _emit(parts, edge_cap)
 
 
-def _bbh_program(grow, cand, inter, perc, tr, valid, inv_perm, lens,
-                 genome_of, n_gen: int, edge_cap: int):
-    """One shard's BBH over the in-scan join's [rows, K] outputs (backend
-    ``"xla"``): the JAX ``_bbh_local``.  Exact scores per (row, slot);
-    candidates come in ascending gene order, so each unordered cell is
-    emitted once from its lower-id row (``cand > grow``).  A generator
-    (see :func:`_bbh_core`); returns what :func:`_bbh_flat_program`
-    returns."""
+def _dense_seg(grow, cand, inter, perc, tr, valid, lens,
+               with_stats: bool) -> _Seg:
+    """A segment from [rows, K] exact counters and validity (the in-scan
+    join's outputs, or the heavy-row pass's valid cells): the JAX
+    ``_bbh_local``'s scores, exact per (row, slot)."""
     K = cand.shape[-1]
     gf = grow.reshape(-1).long()
     cf = cand.reshape(-1, K).long()
@@ -251,7 +297,6 @@ def _bbh_program(grow, cand, inter, perc, tr, valid, inv_perm, lens,
     score = exact_div_f32(torch.maximum(inter_rk, one),
                           torch.maximum(union, one))
     score = torch.where(valid_rk & (inter_rk > 0), score, zero)
-    with_stats = n_gen <= 128 and not _no_stats()
     if with_stats:
         ap = torch.where(perc_rk > 0, exact_div_f32(
             torch.maximum(perc_rk, one),
@@ -260,34 +305,67 @@ def _bbh_program(grow, cand, inter, perc, tr, valid, inv_perm, lens,
             torch.maximum(tr_rk, one), torch.maximum(lenB, one)), zero)
     else:
         ap = atp = score
-    accept, intra, acc_cell, mats = yield from _bbh_core(
-        score, gf, cf, ap, atp, inv_perm, genome_of, n_gen, with_stats,
-        valid=valid_rk,
-    )
-    emask = (accept | intra) & (cf > gf[:, None])
+    return _Seg(score, gf, cf, ap, atp, valid_rk, 1,
+                lambda flat: inter_rk.reshape(-1)[flat])
+
+
+def _with_stats(n_gen: int) -> bool:
+    # past 128 genomes only the edge-critical ims matrix is aggregated;
+    # the O(n_gen^2) stats matrices are print-only diagnostics
+    # (Pangenes.java:130-143) and the host path degrades the same way
+    return n_gen <= 128 and not _no_stats()
+
+
+def _bbh_result(segs, cells, edge_cap):
+    """The emission and cell counts after :func:`_bbh_core` (a
+    generator): what :func:`_bbh_flat_program` returns, less the matrices
+    and the count of valid cells."""
     e_row, e_col, e_inter, e_acc, n_edges, edge_cap = yield from (
-        _emit_program(emask, accept, gf, cf,
-                      lambda flat: inter_rk.reshape(-1)[flat], edge_cap))
-    counts_out = {
-        "n_edges": n_edges,
-        "n_valid": tracing.to_int((score > 0).sum()),
-        "n_inter": tracing.to_int(acc_cell.sum()),
-        "n_intra": tracing.to_int(intra.sum()),
-    }
-    return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
+        _emit_program(segs, cells, edge_cap))
+    n_inter = n_intra = 0
+    for _, intra, acc_cell in cells:
+        n_inter = n_inter + acc_cell.sum()
+        n_intra = n_intra + intra.sum()
+    counts_out = {"n_edges": n_edges, "n_inter": tracing.to_int(n_inter),
+                  "n_intra": tracing.to_int(n_intra)}
+    return (e_row, e_col, e_inter, e_acc), counts_out, edge_cap
+
+
+def _bbh_program(grow, cand, inter, perc, tr, valid, inv_perm, lens,
+                 genome_of, n_gen: int, edge_cap: int, extra=()):
+    """One shard's BBH over the in-scan join's [rows, K] outputs (backend
+    ``"xla"``): the JAX ``_bbh_local``; ``extra``: further segments'
+    (grow, cand, inter, perc, tr, valid), the heavy-row pass's valid
+    cells.  Each unordered cell is emitted once from its lower-id
+    row (``cand > grow``).  A generator (see :func:`_bbh_core`); returns
+    what :func:`_bbh_flat_program` returns."""
+    with_stats = _with_stats(n_gen)
+    segs = [_dense_seg(*seg, lens, with_stats)
+            for seg in [(grow, cand, inter, perc, tr, valid), *extra]]
+    cells, mats = yield from _bbh_core(segs, inv_perm, genome_of, n_gen,
+                                       with_stats)
+    emitted, counts_out, edge_cap = yield from _bbh_result(segs, cells,
+                                                           edge_cap)
+    n_valid = (segs[0].score > 0).sum()
+    for sg in segs[1:]:
+        n_valid = n_valid + (sg.score > 0).sum()
+    counts_out["n_valid"] = tracing.to_int(n_valid)
+    return (*emitted, counts_out, mats, edge_cap)
 
 
 def _bbh_flat_program(grow, cand, counts, pi, pj, fi, fp, ft, fv,
                       inv_perm, lens, genome_of, n_gen: int, edge_cap: int,
-                      steps: int = 1):
+                      steps: int = 1, extra=()):
     """One shard's flat-pair BBH (backend ``"cuda"``): exact scores once
     per flat pair, re-expanded to the [rows, K] maxima structure by one
     gather; the emitted cells' counters are read from the flat arrays at
     their flat positions.  ``steps > 1``: the ring layout (a leading
-    ring-step axis on grow, cand and counts; see :func:`_bbh_core`).  A
-    generator; returns the emitted cells (canonical col > row, padded to
-    ``edge_cap`` with row -1), the cell counts and the genome-pair
-    matrices, and the final ``edge_cap``."""
+    ring-step axis on grow, cand and counts; see :func:`_bbh_core`).
+    ``extra``: further segments as :func:`_bbh_program` takes them (the
+    heavy-row pass's valid cells).  A generator; returns the emitted
+    cells (canonical col > row, padded to ``edge_cap`` with row -1), the
+    cell counts and the genome-pair matrices, and the final
+    ``edge_cap``."""
     dev = fi.device
     K = cand.shape[-1]
     gf = grow.reshape(-1).long()
@@ -314,10 +392,7 @@ def _bbh_flat_program(grow, cand, counts, pi, pj, fi, fp, ft, fv,
     idx = torch.clamp(base[:, None] + sidx, max=n_flat - 1)
     zeros_rk = torch.zeros(cf.shape, dtype=torch.float32, device=dev)
     score = torch.where(slot_ok, score_f[idx], zeros_rk)  # [P, K]
-    # past 128 genomes only the edge-critical ims matrix is aggregated;
-    # the O(n_gen^2) stats matrices are print-only diagnostics
-    # (Pangenes.java:130-143) and the host path degrades the same way
-    with_stats = n_gen <= 128 and not _no_stats()
+    with_stats = _with_stats(n_gen)
     if with_stats:
         # perc/tr fractions as exact IEEE quotients (host parity)
         apf = torch.where(
@@ -330,24 +405,156 @@ def _bbh_flat_program(grow, cand, counts, pi, pj, fi, fp, ft, fv,
         atp = torch.where(slot_ok, atpf[idx], zeros_rk)
     else:
         ap = atp = score
-    accept, intra, acc_cell, mats = yield from _bbh_core(
-        score, gf, cf, ap, atp, inv_perm, genome_of, n_gen, with_stats,
-        steps=steps)
-    # canonical emission (intra already is; accept is symmetric)
-    emask = (accept | intra) & (cf > gf[:, None])
+    del slot_ok, idx, zeros_rk  # [P, K] each, not held through the BBH
 
     def inter_at(flat):
         return fi[torch.clamp(base[flat // K] + (flat % K), max=n_flat - 1)]
 
-    e_row, e_col, e_inter, e_acc, n_edges, edge_cap = yield from (
-        _emit_program(emask, accept, gf, cf, inter_at, edge_cap))
-    counts_out = {
-        "n_edges": n_edges,
-        "n_valid": tracing.to_int((score_f > 0).sum()),
-        "n_inter": tracing.to_int(acc_cell.sum()),
-        "n_intra": tracing.to_int(intra.sum()),
-    }
-    return e_row, e_col, e_inter, e_acc, counts_out, mats, edge_cap
+    segs = [_Seg(score, gf, cf, ap, atp, None, steps, inter_at)]
+    segs += [_dense_seg(*seg, lens, with_stats) for seg in extra]
+    cells, mats = yield from _bbh_core(segs, inv_perm, genome_of, n_gen,
+                                       with_stats)
+    emitted, counts_out, edge_cap = yield from _bbh_result(segs, cells,
+                                                           edge_cap)
+    n_valid = (score_f > 0).sum()
+    for sg in segs[1:]:
+        n_valid = n_valid + (sg.score > 0).sum()
+    counts_out["n_valid"] = tracing.to_int(n_valid)
+    return (*emitted, counts_out, mats, edge_cap)
+
+
+def _heavy_pass(index, runner, shards, over_rows, over_counts,
+                budget: int, row_block: int, steps: int, use_kernel: bool,
+                extract, sp, keep_joined: bool):
+    """The heavy-row pass (span ``extract.heavy``, ``sp``): the rows whose
+    candidates passed the main extraction's cap (``over_rows``, with each
+    overflowing (row, ring step)'s count in ``over_counts``), most
+    candidates first, extracted again on the card by ``extract`` (the
+    main pass's) in chunks, each at its first row's count rounded up to
+    128 and of at most ``budget`` slots (the main extraction's); each
+    chunk's pairs are joined (the join kernel under ``"cuda"``, else the
+    in-scan join) and only its valid cells kept.
+
+    Returns the heavy rows, each global shard's heavy rows [n, H] (the
+    segment's ``all_gather`` layout), each local shard's segment of their
+    valid cells (:func:`_heavy_segment`), the pairs joined, and with
+    ``keep_joined`` shard 0's joined pair lists (pi, pj, inter, perc, tr)
+    under ``"cuda"``."""
+    G = index.n_sequences
+    heavy = np.unique(over_rows)
+    most = np.zeros(len(heavy), np.int64)  # over the ring steps
+    np.maximum.at(most, np.searchsorted(heavy, over_rows), over_counts)
+    order = np.argsort(-most, kind="stable")
+    sp.set("rows", len(heavy))
+    sp.set("K", _round_up(int(most.max()), 128))  # the first chunk's
+    layouts, cells, joined0 = [], [[] for _ in shards.devices], []
+    pairs, start = 0, 0
+    while start < len(order):
+        K = _round_up(int(most[order[start]]), 128)
+        n = max(row_block, budget // K // row_block * row_block)
+        rows = heavy[order[start:start + n]]
+        start += n
+        sp.add("chunks", 1)
+        perm, starts = rows_layout(rows, row_block, G)
+        layouts.append(runner.grow_layout(perm, starts, row_block)
+                       .reshape(shards.n, -1))
+        outs, counts = extract(perm, starts, K, False)
+        pairs += int(counts.sum(dtype=np.int64))
+        for mine, found in zip(cells, _chunk_cells(
+                runner, shards, outs, counts, K, steps, use_kernel,
+                joined0 if keep_joined else None)):
+            mine.append(found)
+    sp.set("pairs", pairs)
+    layout = np.concatenate(layouts, axis=1)
+    segs = _heavy_segment(cells, layout, shards, runner.G_pad, G)
+    return heavy, layout, segs, pairs, joined0
+
+
+def _chunk_cells(runner, shards, outs, counts, K: int, steps: int,
+                 use_kernel: bool, joined0) -> list:
+    """A heavy chunk's valid cells on each local shard, (row gene, column
+    gene, inter, perc, tr): its extraction ``outs`` at cap ``K`` (counts
+    on the host) joined by the join kernel under ``"cuda"`` (shard 0's
+    pair lists appended to ``joined0`` unless None), or read from the
+    in-scan join's outputs."""
+    G = runner.G
+    if use_kernel:
+        per_shard = counts.reshape(steps, shards.n, -1).sum(
+            axis=(0, 2), dtype=np.int64)
+        pair_cap = runner.pair_capacity_from_worst(int(per_shard.max()))
+        flat = runner.flatten_join_shards(outs, K, pair_cap)
+        if joined0 is not None:
+            joined0.append(flat[0][:5])
+        found = [(pi, pj, inter, perc, tr, valid & (pi < G))
+                 for pi, pj, inter, perc, tr, valid in flat]
+    else:
+        found = [(grow.reshape(-1, 1).expand(-1, K), cand, inter, perc, tr,
+                  valid)
+                 for grow, cand, inter, perc, tr, valid, _ in outs]
+    out = []
+    for *xs, keep in found:
+        with tracing.blocked():
+            (at,) = torch.nonzero(keep.reshape(-1), as_tuple=True)
+        out.append([x.reshape(-1)[at] for x in xs])
+    return out
+
+
+def _heavy_segment(cells, layout, shards, G_pad: int, G: int) -> list:
+    """Each local shard's BBH segment of its heavy rows (``layout``, [n, H]
+    gene ids, ``G`` for padding): (grow [H], cand [H, V], inter, perc,
+    tr, valid [H, V]), V the most valid cells of a row over every shard,
+    from ``cells``: a local shard's valid cells as lists of (row gene,
+    column gene, inter, perc, tr), each row's in ascending slot order."""
+    H = layout.shape[1]
+    local = [[torch.cat(x) for x in zip(*c)] for c in cells]
+    pos, widths = [], []
+    for (i, dev), (gi, *_) in zip(enumerate(shards.devices), local):
+        rows = layout[shards.first + i]
+        at = np.zeros(G_pad, np.int64)  # gene -> its row of the segment
+        at[rows[rows < G]] = np.flatnonzero(rows < G)
+        p = torch.from_numpy(at).to(dev)[gi.long()]
+        pos.append(p)
+        widths.append(tracing.to_int(torch.bincount(p, minlength=H).max()))
+    V = max(1, shards.max_int(widths))
+    out = []
+    for (i, dev), (gi, gj, inter, perc, tr), p in zip(
+            enumerate(shards.devices), local, pos):
+        p, o = torch.sort(p, stable=True)
+        n = torch.bincount(p, minlength=H)
+        slot = torch.arange(p.numel(), device=dev) - (torch.cumsum(n, 0)
+                                                      - n)[p]
+        cand = torch.full((H, V), G, dtype=torch.int32, device=dev)
+        cand[p, slot] = gj[o].to(torch.int32)
+        counters = []
+        for x in (inter, perc, tr):
+            c = torch.zeros((H, V), dtype=torch.float32, device=dev)
+            c[p, slot] = x[o].to(torch.float32)
+            counters.append(c)
+        valid = torch.zeros((H, V), dtype=torch.bool, device=dev)
+        valid[p, slot] = True
+        grow = torch.from_numpy(layout[shards.first + i]).to(dev)
+        out.append((grow, cand, *counters, valid))
+    return out
+
+
+def _drop_heavy(outs, shards, heavy: np.ndarray, G_pad: int, K: int,
+                use_kernel: bool) -> list:
+    """The main extraction's local outputs with the heavy rows left out
+    of every ring step: their counts past ``K`` (the flat pair list and
+    the flat BBH skip such rows), or under the in-scan join their
+    validity cleared."""
+    flag = np.zeros(G_pad, dtype=bool)
+    flag[heavy] = True
+    out = []
+    for o, f in zip(outs, shards.replicate(flag)):
+        hit = f[o[0].long()]
+        if use_kernel:
+            grow, cand, counts = o
+            out.append((grow, cand, counts.masked_fill(hit, K + 1)))
+        else:
+            *head, valid, counts = o
+            out.append((*head, valid & ~hit[..., None], counts))
+    return out
 
 
 def compute_network_device(
@@ -358,12 +565,17 @@ def compute_network_device(
     ``config.n_devices`` shards (``devices``: explicit placement, see
     :func:`~pandelos_tpu_torch.parallel.shards.resolve_shards`).
     Returns (edges, stats) with edges as canonical (a, b, host-exact f32
-    score), or None when a pathological candidate overflow (a cap above
-    ``MAX_CANDIDATE_CAP``) needs the host cells path.
+    score), or None when the card cannot hold the heavy-row pass
+    (:func:`hbm_model`): the host cells path then.
 
     Extraction runs with ``upper_only=False`` (each cell on both its
     rows) so the per-row maxima are complete; on candidate-cap overflow
-    the whole extraction reruns at the next power-of-two cap.  With
+    the whole extraction reruns at the next power-of-two cap, up to
+    ``MAX_CANDIDATE_CAP``.  The rows whose candidates pass that
+    (``extract.heavy``, :func:`_heavy_pass`) are extracted again on the
+    card, alone, in chunks each at its own cap; they leave the main
+    extraction's rows, and the BBH takes every valid cell of theirs as a
+    segment of its own.  With
     ``config.ring_extract`` under backend ``"cuda"`` over two shards or
     more (:func:`~pandelos_tpu_torch.config.ring_engaged`) the extraction
     shards and rotates the signatures (``ops/ring.py``) and the BBH takes
@@ -385,8 +597,9 @@ def compute_network_device(
 
     The engine's sub-phases are spans of :mod:`pandelos_tpu_torch.tracing`
     under the caller's (``setup.pad_profiles``, ``setup.runner``,
-    ``setup.signatures``, ``extract``, ``flatten_join`` under ``"cuda"``,
-    ``bbh``, ``fetch``, ``host.edges``, ``host.stats``); none
+    ``setup.signatures``, ``extract``, ``extract.heavy`` where a row
+    passed the cap, ``flatten_join`` under ``"cuda"``, ``bbh``,
+    ``fetch``, ``host.edges``, ``host.stats``); none
     synchronises the card.  ``stats["phase_s"]`` holds their seconds and
     ``wait``, the seconds the host spent blocked on the card within
     them."""
@@ -453,38 +666,70 @@ def compute_network_device(
         use_T = use_kernel and runner.use_bound_bits(len(starts), row_block)
         grow_h = runner.grow_layout(perm_ext, starts, row_block)  # [S*n, R]
         steps = shards.n if use_ring else 1
-        while True:
-            sp.add("passes", 1)  # each pass past the first grew K
-            sp.set("K", K)
+
+        def extract(perm_ext, starts, K, from_T):
+            """One pass over the rows of (perm_ext, starts) at cap K: the
+            local shards' outputs and the global counts on the host (under
+            the ring [steps, S*n, R]: the step axis leads, rows are
+            sharded)."""
             if use_ring:
                 from pandelos_tpu_torch.ops.ring import ring_extract
 
                 outs = ring_extract(runner, perm_ext, starts, row_block, K,
                                     upper_only=False)
-                # [steps, S*n, R]: the step axis leads, rows are sharded
-                counts_h = shards.fetch([o[2] for o in outs], axis=1)
-            else:
-                outs = runner.extract_shards(
-                    perm_ext, starts, row_block, padded.width, K,
-                    do_join=not use_kernel, upper_only=False, from_T=use_T,
-                )
-                counts_h = shards.fetch([o[-1] for o in outs])
+                return outs, shards.fetch([o[2] for o in outs], axis=1)
+            outs = runner.extract_shards(
+                perm_ext, starts, row_block, padded.width, K,
+                do_join=not use_kernel, upper_only=False, from_T=from_T,
+            )
+            return outs, shards.fetch([o[-1] for o in outs])
+
+        while True:
+            sp.add("passes", 1)  # each pass past the first grew K
+            sp.set("K", K)
+            outs, counts_h = extract(perm_ext, starts, K, use_T)
             grow_v = np.broadcast_to(grow_h, counts_h.shape)
             over = (counts_h > K) & (grow_v < G)
-            if not np.any(over):
+            # K doubles past the overflowing rows' counts up to
+            # MAX_CANDIDATE_CAP; rows past it take the heavy-row pass
+            fit = counts_h[over & (counts_h <= MAX_CANDIDATE_CAP)]
+            if not fit.size:
                 break
-            K = _next_pow2(int(counts_h[over].max()))
-            if K > MAX_CANDIDATE_CAP:
-                sp.set("K", K)
-                sp.set("fallback", 1)
-                return None  # pathological: the host cells path
+            K = _next_pow2(int(fit.max()))
+        # no pass below reads the bound bits: their bytes go to the BBH
+        runner.release_bound_bits()
     if capture is not None:
         capture.update(runner=runner, perm_ext=perm_ext, starts=starts,
                        row_block=row_block, use_T=use_T)
 
+    # rows past the cap: extracted again at their own cap, their pairs
+    # joined and their valid cells kept; their rows leave the main
+    # extraction's, and the BBH takes their cells as a segment of its own
+    heavy_rows = np.zeros(0, np.int32)
+    heavy_layout, heavy_segs, heavy_pairs, joined0 = None, None, 0, []
+    if np.any(over):
+        with phase("extract.heavy") as sp:
+            heavy_rows, heavy_layout, heavy_segs, heavy_pairs, joined0 = (
+                _heavy_pass(index, runner, shards, grow_v[over],
+                            counts_h[over], grow_h.size // shards.n * K,
+                            row_block, steps, use_kernel, extract, sp,
+                            keep_joined=capture is not None))
+            mm = hbm_model(index, config, dev, ring=use_ring,
+                           n_devices=shards.n,
+                           heavy_slots=heavy_segs[0][1].numel())
+            if mm is not None and not mm["fits"]:
+                sp.set("fallback", 1)
+                return None  # the host cells path
+            outs = _drop_heavy(outs, shards, heavy_rows, G_pad, K,
+                               use_kernel)
+    main_counts = np.where(np.isin(grow_v, heavy_rows) | (grow_v >= G), 0,
+                           counts_h)
+    extra = ([[seg] for seg in heavy_segs] if heavy_segs
+             else [()] * len(outs))
+
     # every shard's flat pair total: rows are sharded on the S*n axis
-    nf_cap = np.minimum(counts_h, K).reshape(steps, shards.n, -1)
-    per_shard = nf_cap.sum(axis=(0, 2), dtype=np.int64)
+    per_shard = main_counts.reshape(steps, shards.n, -1).sum(
+        axis=(0, 2), dtype=np.int64)
     pair_cap = None
     if use_kernel:
         with phase("flatten_join") as sp:
@@ -494,7 +739,12 @@ def compute_network_device(
             sp.set("launches", shards.n_local)  # a join kernel a shard
             flat = runner.flatten_join_shards(outs, K, pair_cap)
         if capture is not None:
-            fpi, fpj, fi, fp, ft, _ = flat[0]
+            fpi, fpj, fi, fp, ft = flat[0][:5]
+            if joined0:
+                # every pair shard 0's join launches joined, the heavy
+                # chunks' after the main list's
+                fpi, fpj, fi, fp, ft = (
+                    torch.cat(x) for x in zip(flat[0][:5], *joined0))
             capture.update(
                 join_kernel=runner.join_kernel, table=runner.join_table,
                 dg=runner.dg, pi=fpi, pj=fpj, inter=fi, perc=fp, tr=ft,
@@ -503,8 +753,15 @@ def compute_network_device(
         capture["pairs_per_shard"] = per_shard
 
     with phase("bbh") as sp:
-        # gene -> global row position (the all_gather row order)
-        rows_h = grow_h.reshape(-1)
+        # gene -> global row position (the all_gather row order: each
+        # shard's main rows, then its heavy rows; a heavy row's main slot
+        # is left out)
+        rows_h = grow_h.reshape(shards.n, -1)
+        if heavy_layout is not None:
+            rows_h = np.concatenate(
+                [np.where(np.isin(rows_h, heavy_rows), G, rows_h),
+                 heavy_layout], axis=1)
+        rows_h = rows_h.reshape(-1)
         inv_perm = np.zeros(G_pad, dtype=np.int32)
         real = rows_h < G
         inv_perm[rows_h[real]] = np.flatnonzero(real).astype(np.int32)
@@ -530,11 +787,13 @@ def compute_network_device(
                     shards.replicate(genome_pad))
         if use_kernel:
             programs = [
-                _bbh_flat_program(*o, *f, *t, n_gen, edge_cap, steps=steps)
-                for o, f, t in zip(outs, flat, tails)]
+                _bbh_flat_program(*o, *f, *t, n_gen, edge_cap, steps=steps,
+                                  extra=x)
+                for o, f, t, x in zip(outs, flat, tails, extra)]
         else:
-            programs = [_bbh_program(*o[:-1], *t, n_gen, edge_cap)
-                        for o, t in zip(outs, tails)]
+            programs = [
+                _bbh_program(*o[:-1], *t, n_gen, edge_cap, extra=x)
+                for o, t, x in zip(outs, tails, extra)]
         results = shards.spmd(programs)
         edge_cap = results[0][6]
         mats = results[0][5]  # merged over every shard
@@ -626,8 +885,8 @@ def compute_network_device(
             "n_inter_edges": int(e_acc.sum()),
             "n_intra_edges": int((~e_acc).sum()),
             "n_edges": len(edges),
-            "n_joined_pairs": int(
-                np.minimum(counts_h, K)[grow_v < G].sum(dtype=np.int64)),
+            "n_joined_pairs": int(main_counts.sum(dtype=np.int64)
+                                  + heavy_pairs),
             "device_bbh": True,
             "ring_extract": use_ring,
             "device": str(dev),

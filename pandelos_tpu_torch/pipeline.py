@@ -155,8 +155,9 @@ def run_pipeline(
     ``config`` (see :mod:`pandelos_tpu_torch.config`).  The candidate
     engine (``"cuda"``, ``"xla"``) builds the network on the device
     unless ``config.device_bbh`` is False; it takes the cells path
-    (:func:`compute_cells`, then BBH on the host) then, and when a row's
-    candidates pass the largest device cap.  ``"dense"`` and
+    (:func:`compute_cells`, then BBH on the host) then, and when the
+    card cannot hold the engine's heavy-row pass (rows whose candidates
+    pass its cap; ``compute_network_device``).  ``"dense"`` and
     ``"oracle"`` always take the cells path; ``"reference"`` runs the
     transcription twin (:mod:`pandelos_tpu_torch.reference`) on the
     host.  ``capture``, when given, receives the index and the engine's

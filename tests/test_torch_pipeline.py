@@ -335,9 +335,11 @@ def test_unpackable_counts_raise(tmp_path, device_bbh):
 
 
 def test_candidate_cap_past_the_device_limit_raises(monkeypatch, tmp_path):
-    """Past the largest device candidate cap the network comes from the
-    cells path (compute_cells_candidate, host BBH), whose cells equal
-    the oracle's valid cells; the output stays the golden."""
+    """Past the largest device candidate cap the heavy-row pass keeps the
+    network on the device; where the card cannot hold that pass, it
+    comes from the cells path (compute_cells_candidate, host BBH), whose
+    cells equal the oracle's valid cells.  The output stays the golden
+    either way."""
     from pandelos_tpu_torch.oracle.cells import (
         apply_validity,
         compute_cells_oracle,
@@ -354,6 +356,15 @@ def test_candidate_cap_past_the_device_limit_raises(monkeypatch, tmp_path):
 
     monkeypatch.setattr(candidate, "compute_cells_candidate", spy)
     prefix = str(tmp_path / "s")
+    res = run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
+                       _cfg(candidate_cap=2))
+    assert not seen and res.stats["network"]["device_bbh"]
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, "synth_small" + suffix),
+                           shallow=False), suffix
+    monkeypatch.setattr(net_device, "hbm_model",
+                        lambda *a, **kw: {"fits": False})
     cap = {}
     run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
                  _cfg(candidate_cap=2), capture=cap)

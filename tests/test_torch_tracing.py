@@ -148,17 +148,21 @@ def test_clustering_pool_is_counted():
 
 
 def test_engine_fallback_is_counted(monkeypatch, tmp_path):
-    """Past the largest device cap the engine hands the job to the host
-    cells path: the score span says so, the extract span holds the K
-    that tripped it, and the network span follows."""
+    """Where the card cannot hold the heavy-row pass (rows past the
+    largest device cap) the engine hands the job to the host cells path:
+    the score span says so, the extract.heavy span holds the rows that
+    needed the pass and its fallback, and the network span follows."""
     from pandelos_tpu_torch.ops import net_device
 
     monkeypatch.setattr(net_device, "MAX_CANDIDATE_CAP", 2)
+    monkeypatch.setattr(net_device, "hbm_model",
+                        lambda *a, **kw: {"fits": False})
     res = run_pipeline(SMALL, None, _cfg(candidate_cap=2))
     by = {s["name"]: s for s in res.spans}
     assert by["score"]["counters"]["engine.fallback"] == 1
-    assert by["extract"]["counters"]["fallback"] == 1
-    assert by["extract"]["counters"]["K"] > 2
+    heavy = by["extract.heavy"]["counters"]
+    assert heavy["fallback"] == 1 and heavy["rows"] > 0
+    assert by["extract"]["counters"]["K"] == 2
     assert [s["name"] for s in res.spans if s["parent"] is None][:5] == [
         "ingest", "k_select", "index", "score", "network"]
 
