@@ -55,8 +55,10 @@ directory without the package.
 
     python3 chip_smoke.py --kernels-only
 
-stops after the kernel checks (build, random and adversarial tables) and
-prints no result line: the short first call after a kernel changed.
+stops after the kernel checks (build, random and adversarial tables, and
+phase 24: the k-mer index build at the benchmark cells' shapes, against
+the host build and its plain version, timed) and prints no result line:
+the short first call after a kernel changed.
 
 The multi-device paths elsewhere: on the CPU, ``python -m
 pandelos_tpu_torch.cli run in.faa out --device cpu --devices 4 [--ring]``
@@ -783,6 +785,129 @@ def distributed_phase(outdir):
             {k: round(v, 4) for k, v in out["phase_times"].items()}))
 
 
+# phase 24: the k-mer index build at the benchmark cells' shapes
+INDEX_SHAPES = ["mycoplasma64", "xanthomonas14", "xanthomonas14_annotated"]
+# kernels of csrc/kmer_index.cu, by name in a profiler trace
+INDEX_KERNEL = re.compile(r"\bk_(census|windows|keys|radix_hist|radix_scatter|"
+                          r"scan_one_block|flag_count|flag_emit|counts|"
+                          r"gather)\b")
+
+
+def _index_device_ms(fn):
+    """Device ms of the index kernels and of the copies in one call of
+    ``fn`` (``torch.profiler``); (None, None) where the trace shows no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = copy = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if INDEX_KERNEL.search(ev.key):
+            kern += us
+        elif "Memcpy" in ev.key:
+            copy += us
+    if kern == 0:
+        return None, None
+    return kern / 1e3, copy / 1e3
+
+
+def index_phase(dev):
+    """Phase 24: ``csrc/kmer_index.cu`` at the shapes of the benchmark's
+    three cells (their generators' datasets, k by the entropy rule):
+    bit-equal to the host build and to the plain version run on the
+    card; the wrapper's wall (kernels, three waits, the copies back),
+    the kernels' and copies' device time in a profiler trace, the plain
+    version's and the host build's wall, and the least time of the
+    bytes (the residues and offsets read once, the CSR pointer, costs,
+    ids and counts written once, at 3.35 TB/s)."""
+    import numpy as np
+    import torch
+
+    from pandelos_tpu_torch.bench.synth import SynthSpec, generate
+    from pandelos_tpu_torch.index import _encode_sequences
+    from pandelos_tpu_torch.ksel import select_k
+    from pandelos_tpu_torch.native import native_build_index
+    from pandelos_tpu_torch.ops import kmer_index as ki
+
+    rows = []
+    for name in INDEX_SHAPES:
+        with open(os.path.join(ROOT, "benchmark", "configs",
+                               name + ".json")) as fh:
+            spec = SynthSpec(**json.load(fh)["generator"])
+        seqs = generate(spec).sequences
+        k = select_k(seqs)
+        concat, offsets, _ = _encode_sequences(seqs)
+        t = time.perf_counter()
+        host = native_build_index(concat, offsets, k)
+        host_ms = (time.perf_counter() - t) * 1e3
+        c = torch.tensor(concat).to(dev)
+        o = torch.from_numpy(offsets).to(dev)
+        launches0 = ki.kmer_index.launches
+        got = ki.kmer_index(c, o, k)
+        torch.cuda.synchronize()
+        n_launch = ki.kmer_index.launches - launches0
+        t = time.perf_counter()
+        plain = ki.kmer_index_plain(c, o, k)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = 0
+        for other, what in ((host, "host build"), (plain, "plain")):
+            for a, b in zip(got, other):
+                if isinstance(a, np.ndarray):
+                    if a.dtype != b.dtype or a.shape != b.shape:
+                        raise AssertionError(f"kmer_index != {what} at "
+                                             f"{name}: dtype or shape")
+                    d = (int(np.abs(a.astype(np.int64)
+                                    - b.astype(np.int64)).max())
+                         if a.size else 0)
+                else:
+                    d = abs(a - b)
+                err = max(err, d)
+            if err:
+                raise AssertionError(f"kmer_index != {what} at {name}: "
+                                     f"max abs err {err}")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ki.kmer_index(c, o, k)
+            walls.append((time.perf_counter() - t) * 1e3)
+        kern_ms, copy_ms = _index_device_ms(lambda: ki.kmer_index(c, o, k))
+        G = len(offsets) - 1
+        nnz = int(got[1].shape[0])
+        nbytes = len(concat) + 8 * (G + 1) + 8 * (G + 1) + 8 * G + 8 * nnz
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        windows = int(np.maximum(np.diff(offsets) - k + 1, 0).sum())
+        log(24, f"kmer_index {name} (k {k}, genes {G}, windows {windows}, "
+            f"nnz {nnz}, total_vocab {got[5]}, vocab_size {got[4]}): "
+            f"bit-equal to the host build and to plain; kernels "
+            f"{kern_ms} ms, copies {copy_ms} ms (device), wrapper wall "
+            f"median {sorted(walls)[2]:.3f} ms of {walls}, {n_launch} "
+            f"launches; bound {bound_ms:.4f} ms (bytes); plain on the "
+            f"card {plain_ms:.1f} ms; host build {host_ms:.1f} ms")
+        rows.append({
+            "name": "kmer_index", "shape": name, "route": "cuda",
+            "source": "pandelos_tpu_torch/csrc/kmer_index.cu",
+            "replaces": "native/host_index.cpp::pt_build_index (no TPU "
+                        "kernel)",
+            # launches: the main path's (phase 6, one build of MAIN)
+            "launches": None, "launches_per_build": n_launch,
+            "max_abs_err": err, "ms": kern_ms,
+            "copy_ms": copy_ms, "wall_ms": sorted(walls)[2],
+            "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+        })
+        del c, o, got, plain
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -793,6 +918,7 @@ def main() -> int:
         return 1
     from pandelos_tpu_torch import kernels
     from pandelos_tpu_torch.native import loader
+    from pandelos_tpu_torch.ops import kmer_index as ki
     from pandelos_tpu_torch.ops import lane_join
     from pandelos_tpu_torch.ops.candidate import _bf16_round_up
     from pandelos_tpu_torch.ops.hist import host_histogram
@@ -860,6 +986,7 @@ def main() -> int:
         f"bit-equal to plain after a synchronize")
     del args
     log(3, f"launches in phase 3 (kernel checks, not a path): {launches()}")
+    index_rows = index_phase(dev)
     if sys.argv[1:] == ["--kernels-only"]:
         return 0
 
@@ -895,23 +1022,38 @@ def main() -> int:
         held6 = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         zero_launches()
+        ki.kmer_index.launches = 0
         for k in loader.CALLS:
             loader.CALLS[k] = 0
         res, wall, _ = run(MAIN, outdir, capture=cap)
         n6 = launches()
+        n6_index = ki.kmer_index.launches
         peak6 = torch.cuda.max_memory_allocated(dev)
         native = dict(loader.CALLS)
         net = res.stats["network"]
         if n6["lane2"] < 1 or n6["lane"] or n6["roll"]:
             raise AssertionError(f"main path launches {n6}: lane2 only")
-        if native["build_index"] < 1 or native["gn_families"] < 1:
-            raise AssertionError(f"native cores unused: {native}")
+        if native["gn_families"] < 1:
+            raise AssertionError(f"native clustering unused: {native}")
+        on_card = [s["counters"].get("on_card") for s in res.spans
+                   if s["name"] == "index"]
+        if on_card != [1] or native["build_index"]:
+            raise AssertionError(f"main path index not built on the card: "
+                                 f"on_card {on_card}, native {native}")
+        per_build = [r["launches_per_build"] for r in index_rows
+                     if r["shape"] == MAIN]
+        if [n6_index] != per_build:
+            raise AssertionError(f"main path index launches {n6_index}: "
+                                 f"not one build ({per_build} in phase 24)")
+        for r in index_rows:
+            r["launches"] = n6_index
         got6 = check_targets(MAIN, res)
         log(6, f"{MAIN} .net/.clus byte-identical to golden; n_cells "
             f"{got6['n_cells']} / {MAIN_TARGETS['n_cells']}, edges "
             f"{got6['edges']} / {MAIN_TARGETS['edges']}, families "
             f"{got6['families']} / {MAIN_TARGETS['families']}; launches "
-            f"{n6}; native calls {native}; wall {wall:.2f}s")
+            f"{n6}, kmer_index {n6_index}; native calls {native}; wall "
+            f"{wall:.2f}s")
         log(6, "phase_times " + json.dumps(
             {k: round(v, 4) for k, v in res.phase_times.items()}))
         log(6, "device phases " + json.dumps(net["phase_s"]))
@@ -1241,6 +1383,7 @@ def main() -> int:
             "bound_by": r[4],
             "library_ms": None,
         })
+    out.extend(index_rows)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

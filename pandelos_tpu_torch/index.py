@@ -35,6 +35,7 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from pandelos_tpu_torch import tracing
 from pandelos_tpu_torch.io.faa import FaaDataset
@@ -58,6 +59,9 @@ class KmerIndex:
     profile_ids: np.ndarray  # int32 [nnz]
     profile_counts: np.ndarray  # int32 [nnz]
     computation_costs: np.ndarray  # int64 [G]: reference "total_visited"
+    # not a field (neither saved nor compared): True where build_index
+    # built the arrays on a card
+    on_card = False
 
     @property
     def max_profile_len(self) -> int:
@@ -184,7 +188,16 @@ def build_index(
     k: Optional[int] = None,
     only_complexity: bool = False,
     use_native: bool = True,
+    device=None,
 ) -> KmerIndex:
+    """The index of ``ds`` at ``k`` (chosen by entropy when None).  A
+    CUDA ``device`` builds it on that card
+    (:func:`~pandelos_tpu_torch.ops.kmer_index.index_on_card`, span
+    ``index.device``) unless ``only_complexity`` or the packed keys do
+    not fit, which the host decides before anything goes up; otherwise
+    the host builds it: the native core (span ``index.native``) with
+    ``use_native``, else NumPy.  Both give the same arrays;
+    ``KmerIndex.on_card`` says which ran."""
     from pandelos_tpu_torch.ksel import select_k
 
     if k is None:
@@ -199,30 +212,41 @@ def build_index(
 
     kseq_lengths = np.maximum(lengths - k + 1, 0).astype(np.int64)
 
-    if use_native and n_seq > 0:
+    built = None
+    on_card = False
+    if (device is not None and torch.device(device).type == "cuda"
+            and not only_complexity and n_seq > 0):
+        from pandelos_tpu_torch.ops import kmer_index
+
+        on_card = kmer_index.fits_on_card(concat, offsets, k)
+        if on_card:
+            built = kmer_index.index_on_card(concat, offsets, k, device)
+    if not on_card and use_native and n_seq > 0:
         from pandelos_tpu_torch.native import native_build_index
 
         with tracing.span("index.native"):
-            native = native_build_index(concat, offsets, k)
-        if native is not None:
-            ptr, ids, cnts, costs, vocab_size, total_vocab = native
-            if only_complexity:
-                ids = ids[:0]
-                cnts = cnts[:0]
-                ptr = np.zeros(n_seq + 1, dtype=np.int64)
-            return KmerIndex(
-                k=int(k),
-                n_sequences=n_seq,
-                n_genomes=ds.n_genomes,
-                seq_genome=seq_genome,
-                kseq_lengths=kseq_lengths.astype(np.int32),
-                total_vocab=total_vocab,
-                vocab_size=vocab_size,
-                profile_ptr=ptr,
-                profile_ids=ids,
-                profile_counts=cnts,
-                computation_costs=costs,
-            )
+            built = native_build_index(concat, offsets, k)
+    if built is not None:
+        ptr, ids, cnts, costs, vocab_size, total_vocab = built
+        if only_complexity:
+            ids = ids[:0]
+            cnts = cnts[:0]
+            ptr = np.zeros(n_seq + 1, dtype=np.int64)
+        index = KmerIndex(
+            k=int(k),
+            n_sequences=n_seq,
+            n_genomes=ds.n_genomes,
+            seq_genome=seq_genome,
+            kseq_lengths=kseq_lengths.astype(np.int32),
+            total_vocab=total_vocab,
+            vocab_size=vocab_size,
+            profile_ptr=ptr,
+            profile_ids=ids,
+            profile_counts=cnts,
+            computation_costs=costs,
+        )
+        index.on_card = on_card
+        return index
 
     alphabet_codes = np.unique(concat) if concat.size else np.zeros(0, np.uint8)
 

@@ -134,6 +134,25 @@ def _score_and_network(ds, index, k, config, capture, devices):
         )
 
 
+def _index_device(config, devices):
+    """The device the index is built on: the first shard's device of the
+    engine, resolved as the engine resolves it (``resolve_shards`` under
+    ``"cuda"`` and ``"xla"``, ``resolve_device`` under ``"dense"``), so
+    that a CUDA run without a card raises here as it would there; None,
+    the host build, for the host backends and the -c mode, which runs no
+    device stage."""
+    backend = resolve_backend(config.backend)
+    if config.only_complexity or backend not in ("cuda", "xla", "dense"):
+        return None
+    if backend == "dense":
+        from pandelos_tpu_torch.device import resolve_device
+
+        return resolve_device(config.device)
+    from pandelos_tpu_torch.parallel.shards import resolve_shards
+
+    return resolve_shards(config, None, devices).devices[0]
+
+
 def _phase_times(spans: List[dict]) -> dict:
     """``phase_times`` from the job's closed spans; the device path has
     no ``network`` span, and its ``network`` reads 0.0."""
@@ -204,7 +223,9 @@ def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
         sp.set("k", k)
 
     with tracing.span("index") as sp:
-        index = build_index(ds, k=k, only_complexity=config.only_complexity)
+        index = build_index(ds, k=k, only_complexity=config.only_complexity,
+                            device=_index_device(config, devices))
+        sp.set("on_card", int(index.on_card))
         sp.set("vocab_size", index.vocab_size)
         sp.set("total_vocab", index.total_vocab)
         sp.set("kmers", int(np.sum(index.kseq_lengths, dtype=np.int64)))

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each join kernel against its plain
 PyTorch version bit for bit (seeded tables, then adversarial tables and
-pair lists), the wrappers' refusals, no fallback when a kernel cannot
-load, and the engine's paths to the goldens through the kernels.  Every test needs
-an NVIDIA card and skips without one.  The file imports neither JAX nor
+pair lists), the k-mer index build against its plain version and the
+host build (seeded, adversarial and the xanthomonas14 preset's data),
+the wrappers' refusals, no fallback when a kernel cannot load, and the
+engine's paths to the goldens through the kernels.  Every test needs an
+NVIDIA card and skips without one.  The file imports neither JAX nor
 the JAX package, so it also runs where JAX is absent:
 
     python3 -m pytest --noconftest -o markers=cuda -p no:cacheprovider -q \\
@@ -18,6 +20,10 @@ import torch
 
 from pandelos_tpu_torch import kernels
 from pandelos_tpu_torch.config import PipelineConfig
+from pandelos_tpu_torch.index import _encode_sequences, build_index
+from pandelos_tpu_torch.io.faa import FaaDataset
+from pandelos_tpu_torch.native import native_build_index
+from pandelos_tpu_torch.ops import kmer_index as tki
 from pandelos_tpu_torch.ops import lane_join as tlj
 from pandelos_tpu_torch.ops import pair_join as tpj
 from pandelos_tpu_torch.pipeline import run_pipeline
@@ -220,3 +226,122 @@ def test_engine_never_synchronises_the_card(card, monkeypatch, backend):
     assert list(stats["phase_s"]) == names + ["wait"]
     assert 0 < stats["phase_s"]["wait"] <= sum(
         stats["phase_s"][n] for n in names)
+
+
+def _genes(seed, n_genes, alphabet, lo, hi):
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(alphabet))
+    return ["".join(rng.choice(letters, int(rng.integers(lo, hi + 1))))
+            for _ in range(n_genes)]
+
+
+def _index_case(name):
+    """(sequences, k) of a named index case."""
+    if name.startswith("seeded"):
+        seed = int(name[-1])
+        return _genes(seed, 300 + 500 * seed, "ACDEFGHIKLMNPQRSTVWY", 0,
+                      400), 3 + seed
+    if name == "xanthomonas14":
+        from pandelos_tpu_torch.bench.synth import generate_preset
+
+        return generate_preset("xanthomonas14").sequences, 6
+    return {
+        "empty_and_short": (["", "MK", "MKV", "", "MKVLAW", "A", ""] * 40, 4),
+        "single_gene": (["MKVLAWMKVLAWPQ" * 30], 3),
+        "k_1": (_genes(7, 90, "MKVLAW", 0, 12), 1),
+        "homopolymers": (["A" * 3000, "A" * 2999 + "C", "AC" * 700,
+                          "CA" * 5, "C"] * 20, 3),
+        "one_letter": (["A" * 50, "A" * 7, "A"], 4),
+        "keyspace_past_2_28": (_genes(8, 2000, "ACDEFGHIKLMNPQRSTVWY", 5,
+                                      300), 7),
+        "many_genes": (_genes(9, 70000, "ACDEFGHIKLMNPQRSTVWY", 0, 40), 5),
+    }[name]
+
+
+INDEX_CASES = ["seeded0", "seeded1", "seeded2", "empty_and_short",
+               "single_gene", "k_1", "homopolymers", "one_letter",
+               "keyspace_past_2_28", "many_genes", "xanthomonas14"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_kmer_index_kernel_matches_plain_and_host(card, name):
+    seqs, k = _index_case(name)
+    concat, offsets, _ = _encode_sequences(seqs)
+    plain = tki.kmer_index(torch.tensor(concat), torch.from_numpy(offsets), k)
+    host = native_build_index(concat, offsets, k)
+    launches = tki.kmer_index.launches
+    got = tki.kmer_index(torch.tensor(concat).to(card),
+                         torch.from_numpy(offsets).to(card), k)
+    torch.cuda.synchronize()
+    assert tki.kmer_index.launches > launches
+    for other in (plain, host):
+        for a, b in zip(got, other):
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b
+
+
+@pytest.mark.cuda
+def test_kmer_index_refuses_on_card(card):
+    """A wrong dtype, a non-contiguous tensor or tensors on two devices
+    raise before any launch; so does a packed key past 63 bits, which
+    ``build_index`` never hands the card: it decides on the host and
+    builds such a dataset there."""
+    concat = torch.zeros(64, dtype=torch.uint8, device=card)
+    offsets = torch.tensor([0, 30, 64], dtype=torch.int64, device=card)
+    launches = tki.kmer_index.launches
+    with pytest.raises(TypeError):
+        tki.kmer_index(concat.to(torch.int32), offsets, 3)
+    with pytest.raises(TypeError):
+        tki.kmer_index(concat, offsets.to(torch.int32), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tki.kmer_index(torch.zeros(128, dtype=torch.uint8,
+                                   device=card)[::2], offsets, 3)
+    with pytest.raises(ValueError, match="offsets is on"):
+        tki.kmer_index(concat, offsets.cpu(), 3)
+    assert tki.kmer_index.launches == launches
+    seqs = ["MKVLAWPQEDCGHINRSTFY" * 3] * 2
+    concat, off, _ = _encode_sequences(seqs)
+    assert not tki.fits_on_card(concat, off, 16)
+    with pytest.raises(ValueError, match="63 bits"):
+        tki.kmer_index(torch.tensor(concat).to(card),
+                       torch.from_numpy(off).to(card), 16)
+    ds = FaaDataset(sequences=seqs, names=["a", "b"], descriptions=["", ""],
+                    seq_genome=[0, 1], genome_names=["g0", "g1"])
+    launches = tki.kmer_index.launches
+    index = build_index(ds, k=16, device=card)
+    assert not index.on_card and tki.kmer_index.launches == launches
+
+
+@pytest.mark.cuda
+def test_default_pipeline_builds_the_index_on_card(card, tmp_path):
+    """A default run on the card builds the index with the kernels: the
+    launch counter moves, the ``index`` span reads ``on_card`` 1 with an
+    ``index.device`` child and no ``index.native``, and the outputs are
+    the goldens."""
+    from pandelos_tpu_torch.native import loader
+
+    launches = tki.kmer_index.launches
+    native = loader.CALLS["build_index"]
+    prefix = str(tmp_path / "synth_small")
+    res = run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
+                       PipelineConfig(row_block=16, col_block=128,
+                                      candidate_cap=64))
+    assert tki.kmer_index.launches > launches
+    assert loader.CALLS["build_index"] == native
+    index = [s for s in res.spans if s["name"] == "index"]
+    assert len(index) == 1 and index[0]["counters"]["on_card"] == 1
+    device = [s for s in res.spans if s["name"] == "index.device"]
+    assert len(device) == 1 and device[0]["parent"] == index[0]["id"]
+    counters = device[0]["counters"]
+    for key in ("windows", "nnz", "total_vocab", "vocab_size", "launches",
+                "bytes_to_card", "bytes_to_host", "wait_s"):
+        assert counters[key] > 0, key
+    assert "index.native" not in {s["name"] for s in res.spans}
+    for suffix in (".net", ".clus"):
+        assert filecmp.cmp(prefix + suffix,
+                           os.path.join(GOLDEN, "synth_small" + suffix),
+                           shallow=False), suffix
