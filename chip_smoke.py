@@ -57,7 +57,7 @@ directory without the package.
 
 stops after the kernel checks (build, random and adversarial tables, and
 phase 24: the k-mer index build at the benchmark cells' shapes, against
-the host build and its plain version, timed) and prints no result line:
+the NumPy build and its plain version, timed) and prints no result line:
 the short first call after a kernel changed.
 
 The multi-device paths elsewhere: on the CPU, ``python -m
@@ -821,19 +821,19 @@ def _index_device_ms(fn):
 def index_phase(dev):
     """Phase 24: ``csrc/kmer_index.cu`` at the shapes of the benchmark's
     three cells (their generators' datasets, k by the entropy rule):
-    bit-equal to the host build and to the plain version run on the
-    card; the wrapper's wall (kernels, three waits, the copies back),
-    the kernels' and copies' device time in a profiler trace, the plain
-    version's and the host build's wall, and the least time of the
-    bytes (the residues and offsets read once, the CSR pointer, costs,
-    ids and counts written once, at 3.35 TB/s)."""
+    bit-equal to the plain version run on the card and to the NumPy
+    build (``index.py``, the JAX package's index algorithm, which the
+    CPU tests hold equal to it); the wrapper's wall (kernels, three
+    waits, the copies back), the kernels' and copies' device time in a
+    profiler trace, the plain version's and the NumPy build's wall, and
+    the least time of the bytes (the residues and offsets read once, the
+    CSR pointer, costs, ids and counts written once, at 3.35 TB/s)."""
     import numpy as np
     import torch
 
     from pandelos_tpu_torch.bench.synth import SynthSpec, generate
-    from pandelos_tpu_torch.index import _encode_sequences
+    from pandelos_tpu_torch.index import _encode_sequences, _numpy_index
     from pandelos_tpu_torch.ksel import select_k
-    from pandelos_tpu_torch.native import native_build_index
     from pandelos_tpu_torch.ops import kmer_index as ki
 
     rows = []
@@ -843,9 +843,10 @@ def index_phase(dev):
             spec = SynthSpec(**json.load(fh)["generator"])
         seqs = generate(spec).sequences
         k = select_k(seqs)
-        concat, offsets, _ = _encode_sequences(seqs)
+        concat, offsets, lengths = _encode_sequences(seqs)
         t = time.perf_counter()
-        host = native_build_index(concat, offsets, k)
+        host = _numpy_index(concat, offsets, k,
+                            np.maximum(lengths - k + 1, 0))
         host_ms = (time.perf_counter() - t) * 1e3
         c = torch.tensor(concat).to(dev)
         o = torch.from_numpy(offsets).to(dev)
@@ -858,7 +859,7 @@ def index_phase(dev):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
         err = 0
-        for other, what in ((host, "host build"), (plain, "plain")):
+        for other, what in ((host, "NumPy build"), (plain, "plain")):
             for a, b in zip(got, other):
                 if isinstance(a, np.ndarray):
                     if a.dtype != b.dtype or a.shape != b.shape:
@@ -887,16 +888,15 @@ def index_phase(dev):
         windows = int(np.maximum(np.diff(offsets) - k + 1, 0).sum())
         log(24, f"kmer_index {name} (k {k}, genes {G}, windows {windows}, "
             f"nnz {nnz}, total_vocab {got[5]}, vocab_size {got[4]}): "
-            f"bit-equal to the host build and to plain; kernels "
+            f"bit-equal to the NumPy build and to plain; kernels "
             f"{kern_ms} ms, copies {copy_ms} ms (device), wrapper wall "
             f"median {sorted(walls)[2]:.3f} ms of {walls}, {n_launch} "
             f"launches; bound {bound_ms:.4f} ms (bytes); plain on the "
-            f"card {plain_ms:.1f} ms; host build {host_ms:.1f} ms")
+            f"card {plain_ms:.1f} ms; NumPy build {host_ms:.1f} ms")
         rows.append({
             "name": "kmer_index", "shape": name, "route": "cuda",
             "source": "pandelos_tpu_torch/csrc/kmer_index.cu",
-            "replaces": "native/host_index.cpp::pt_build_index (no TPU "
-                        "kernel)",
+            "replaces": "ig/native/library.cpp:189-371 (no TPU kernel)",
             # launches: the main path's (phase 6, one build of MAIN)
             "launches": None, "launches_per_build": n_launch,
             "max_abs_err": err, "ms": kern_ms,
@@ -1037,9 +1037,9 @@ def main() -> int:
             raise AssertionError(f"native clustering unused: {native}")
         on_card = [s["counters"].get("on_card") for s in res.spans
                    if s["name"] == "index"]
-        if on_card != [1] or native["build_index"]:
+        if on_card != [1]:
             raise AssertionError(f"main path index not built on the card: "
-                                 f"on_card {on_card}, native {native}")
+                                 f"on_card {on_card}")
         per_build = [r["launches_per_build"] for r in index_rows
                      if r["shape"] == MAIN]
         if [n6_index] != per_build:

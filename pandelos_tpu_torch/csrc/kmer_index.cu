@@ -1,11 +1,10 @@
 // k-mer multiset index build for NVIDIA Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the JAX package builds its index on the host
-// (pandelos_tpu/index.py and its C++ core).  It replaces the port's host
-// build, native/host_index.cpp::pt_build_index, which itself replaces the
-// reference's preprocessing core (ig/native/library.cpp:189-371), for runs
-// whose engine runs on a card.  It produces what pt_build_index produces,
-// bit for bit:
+// (pandelos_tpu/index.py and its C++ core).  It replaces the reference's
+// preprocessing core (ig/native/library.cpp:189-371) for runs whose index
+// is built on a card, and produces what the JAX package's index and the
+// port's NumPy build (index.py) produce, bit for bit:
 //
 // - the alphabet census (dense ranks in ascending byte order) and one
 //   packed key per window that lies inside one gene;
@@ -19,9 +18,10 @@
 // What bounds it on this card: bytes.  Every step is a pass over the
 // windows, the entries or the groups (a few hundred MB at the benchmark's
 // shapes, well under a millisecond at 3.35 TB/s); no step does more than a
-// handful of integer operations per byte.  The host build was bound by
-// memory latency on one thread (a 64 M-bucket histogram, random scatter,
-// a walk over every bucket); here every pass is wide and mostly streaming.
+// handful of integer operations per byte.  The single-threaded host
+// build it replaced was bound by memory latency (a 64 M-bucket histogram,
+// random scatter, a walk over every bucket); here every pass is wide and
+// mostly streaming.
 //
 // Design:
 // - Keys: one thread per window; its gene by binary search of the

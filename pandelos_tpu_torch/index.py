@@ -1,4 +1,4 @@
-"""K-mer multiset index: the host-side replacement of the native core's
+"""K-mer multiset index: what replaces the reference native core's
 preprocessing phase (``ig/native/library.cpp:189-371``).
 
 Reference behaviour being replaced (not translated):
@@ -187,18 +187,20 @@ def build_index(
     ds: FaaDataset,
     k: Optional[int] = None,
     only_complexity: bool = False,
-    use_native: bool = True,
     device=None,
 ) -> KmerIndex:
-    """The index of ``ds`` at ``k`` (chosen by entropy when None).  A
-    CUDA ``device`` builds it on that card
-    (:func:`~pandelos_tpu_torch.ops.kmer_index.index_on_card`, span
-    ``index.device``) unless ``only_complexity`` or the packed keys do
-    not fit, which the host decides before anything goes up; otherwise
-    the host builds it: the native core (span ``index.native``) with
-    ``use_native``, else NumPy.  Both give the same arrays;
-    ``KmerIndex.on_card`` says which ran."""
+    """The index of ``ds`` at ``k`` (chosen by entropy when None).  Where
+    the packed key fits in 63 bits and the windows stay under 2^31, which
+    the host decides before anything goes up
+    (:func:`~pandelos_tpu_torch.ops.kmer_index.fits_packed_key`), it is
+    built on ``device``, the CPU when None
+    (:func:`~pandelos_tpu_torch.ops.kmer_index.index_on_device`, span
+    ``index.device``: the kernels on a card, their plain twin elsewhere);
+    otherwise by NumPy on the host.  Both give the same arrays;
+    ``KmerIndex.on_card`` says whether a card built them.  With
+    ``only_complexity`` the profiles are left empty."""
     from pandelos_tpu_torch.ksel import select_k
+    from pandelos_tpu_torch.ops import kmer_index
 
     if k is None:
         k = select_k(ds.sequences)
@@ -212,42 +214,42 @@ def build_index(
 
     kseq_lengths = np.maximum(lengths - k + 1, 0).astype(np.int64)
 
-    built = None
     on_card = False
-    if (device is not None and torch.device(device).type == "cuda"
-            and not only_complexity and n_seq > 0):
-        from pandelos_tpu_torch.ops import kmer_index
+    if kmer_index.fits_packed_key(concat, offsets, k):
+        device = torch.device("cpu" if device is None else device)
+        on_card = device.type == "cuda"
+        built = kmer_index.index_on_device(concat, offsets, k, device)
+    else:
+        built = _numpy_index(concat, offsets, k, kseq_lengths)
+    ptr, ids, cnts, costs, vocab_size, total_vocab = built
+    if only_complexity:
+        ids = ids[:0]
+        cnts = cnts[:0]
+        ptr = np.zeros(n_seq + 1, dtype=np.int64)
+    index = KmerIndex(
+        k=int(k),
+        n_sequences=n_seq,
+        n_genomes=ds.n_genomes,
+        seq_genome=seq_genome,
+        kseq_lengths=kseq_lengths.astype(np.int32),
+        total_vocab=total_vocab,
+        vocab_size=vocab_size,
+        profile_ptr=ptr,
+        profile_ids=ids,
+        profile_counts=cnts,
+        computation_costs=costs,
+    )
+    index.on_card = on_card
+    return index
 
-        on_card = kmer_index.fits_on_card(concat, offsets, k)
-        if on_card:
-            built = kmer_index.index_on_card(concat, offsets, k, device)
-    if not on_card and use_native and n_seq > 0:
-        from pandelos_tpu_torch.native import native_build_index
 
-        with tracing.span("index.native"):
-            built = native_build_index(concat, offsets, k)
-    if built is not None:
-        ptr, ids, cnts, costs, vocab_size, total_vocab = built
-        if only_complexity:
-            ids = ids[:0]
-            cnts = cnts[:0]
-            ptr = np.zeros(n_seq + 1, dtype=np.int64)
-        index = KmerIndex(
-            k=int(k),
-            n_sequences=n_seq,
-            n_genomes=ds.n_genomes,
-            seq_genome=seq_genome,
-            kseq_lengths=kseq_lengths.astype(np.int32),
-            total_vocab=total_vocab,
-            vocab_size=vocab_size,
-            profile_ptr=ptr,
-            profile_ids=ids,
-            profile_counts=cnts,
-            computation_costs=costs,
-        )
-        index.on_card = on_card
-        return index
-
+def _numpy_index(concat: np.ndarray, offsets: np.ndarray, k: int,
+                 kseq_lengths: np.ndarray):
+    """The index's arrays by NumPy on the host, for keys of any width:
+    (profile_ptr, profile_ids, profile_counts, computation_costs,
+    vocab_size, total_vocab), as ``ops/kmer_index.py::kmer_index``
+    gives them."""
+    n_seq = offsets.shape[0] - 1
     alphabet_codes = np.unique(concat) if concat.size else np.zeros(0, np.uint8)
 
     keys = _window_keys(concat, k, alphabet_codes)
@@ -309,21 +311,5 @@ def build_index(
     profile_ptr = np.zeros(n_seq + 1, dtype=np.int64)
     np.cumsum(per_gene_nnz, out=profile_ptr[1:])
 
-    if only_complexity:
-        profile_ids = profile_ids[:0]
-        kept_counts = kept_counts[:0]
-        profile_ptr = np.zeros(n_seq + 1, dtype=np.int64)
-
-    return KmerIndex(
-        k=int(k),
-        n_sequences=n_seq,
-        n_genomes=ds.n_genomes,
-        seq_genome=seq_genome,
-        kseq_lengths=kseq_lengths.astype(np.int32),
-        total_vocab=total_vocab,
-        vocab_size=vocab_size,
-        profile_ptr=profile_ptr,
-        profile_ids=profile_ids,
-        profile_counts=kept_counts,
-        computation_costs=computation_costs,
-    )
+    return (profile_ptr, profile_ids, kept_counts, computation_costs,
+            vocab_size, total_vocab)

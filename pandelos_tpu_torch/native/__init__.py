@@ -1,4 +1,1 @@
-from pandelos_tpu_torch.native.loader import (  # noqa: F401
-    native_available,
-    native_build_index,
-)
+from pandelos_tpu_torch.native.loader import native_available  # noqa: F401

@@ -1,284 +1,23 @@
-// Native host-side k-mer index builder.
+// Native host core of the port's clustering: one Girvan-Newman split
+// level (pt_gn_split), every colliding component's whole recursion on a
+// pool of threads (pt_gn_families), and the CPython set order that
+// recursion replays (pt_pyset_order).
 //
-// TPU-native equivalent of the reference's JNI preprocessing core
-// (ig/native/library.cpp:189-371): alphabet census + dense char ranks
-// (:216-230), rolling polynomial ranks (:75-79,:134-150), sort + dedup into
-// (k-mer, gene, count) multiset entries (:270-287), singleton-group pruning
-// and per-gene computation costs (:297-335).  Redesigned, not translated:
-// one flat (key, gene) entry array radix-sorted by 64-bit packed k-mer key,
-// then a single linear pass produces dense shared-vocabulary ids, CSR
-// profiles and costs ready for the device (int32 ids only ever reach the
-// TPU).
+// The file's name is older than its content: the k-mer index is built
+// by ops/kmer_index.py (csrc/kmer_index.cu on a card, its plain PyTorch
+// twin elsewhere) and, for keys past 63 bits, by index.py's NumPy build.
 //
 // C ABI for ctypes; buffers are malloc'd here and released by pt_free.
 
-#include <climits>
 #include <cstdint>
 #include <cstdlib>
-#include <cstring>
 #include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <thread>
 #include <vector>
 
-namespace {
-
-struct Entry {
-    uint64_t key;
-    uint32_t gene;
-};
-
-// Direct bucket histogram over the full base^k keyspace: one count pass,
-// one in-place exclusive prefix, one stable scatter of gene ids.  Replaces
-// the multi-pass LSD radix sort whenever the keyspace fits in memory
-// (protein alphabets: 20^6 = 64M buckets = 256 MB) — ~3x fewer passes over
-// the 100+ MB entry stream than the byte-wise radix.  The reference sorts
-// the same stream with 8-bit LSD passes (ig/native/library.cpp:270-278).
-constexpr int64_t kBucketMax = (int64_t)1 << 28;
-
-// LSD radix sort over the 64-bit key, 8 bits per pass; passes over leading
-// zero bytes are skipped.  Fallback for keyspaces past kBucketMax.
-void radix_sort_by_key(std::vector<Entry>& v, uint64_t max_key) {
-    std::vector<Entry> tmp(v.size());
-    int passes = 0;
-    while (max_key) {
-        passes++;
-        max_key >>= 8;
-    }
-    if (passes == 0) passes = 1;
-    for (int p = 0; p < passes; p++) {
-        size_t counts[257] = {0};
-        const int shift = p * 8;
-        for (const auto& e : v) counts[((e.key >> shift) & 0xFF) + 1]++;
-        for (int i = 1; i < 257; i++) counts[i] += counts[i - 1];
-        for (const auto& e : v) tmp[counts[(e.key >> shift) & 0xFF]++] = e;
-        v.swap(tmp);
-    }
-}
-
-}  // namespace
-
-extern "C" {
-
-void pt_free(void* p) { free(p); }
-
-// Returns 0 on success, -1 on bad args, -2 when base^k overflows u64 (the
-// caller falls back to the NumPy wide-key path).
-int pt_build_index(const uint8_t* concat, int64_t total_len,
-                   const int64_t* offsets, int64_t n_seq, int32_t k,
-                   int64_t** out_profile_ptr, int32_t** out_profile_ids,
-                   int32_t** out_profile_counts, int64_t** out_costs,
-                   int64_t* out_nnz, int64_t* out_vocab_size,
-                   int64_t* out_total_vocab) {
-    if (k <= 0 || n_seq < 0 || total_len < 0) return -1;
-
-    // --- alphabet census -> dense ranks in ascending char-code order
-    //     (same assignment rule as rank_init, library.cpp:96-100)
-    uint64_t counts256[256] = {0};
-    for (int64_t i = 0; i < total_len; i++) counts256[concat[i]]++;
-    uint64_t rank_values[256];
-    uint64_t base = 0;
-    for (int i = 0; i < 256; i++) {
-        if (counts256[i]) rank_values[i] = base++;
-    }
-    if (base == 0) base = 1;
-
-    // overflow check for base^k
-    uint64_t max_key = 1;
-    for (int i = 0; i < k; i++) {
-        if (max_key > UINT64_MAX / base) return -2;
-        max_key *= base;
-    }
-    max_key -= 1;
-
-    // --- rolling packed keys per gene
-    int64_t n_windows = 0;
-    for (int64_t s = 0; s < n_seq; s++) {
-        int64_t len = offsets[s + 1] - offsets[s];
-        if (len >= k) n_windows += len - k + 1;
-    }
-    const bool bucket_path =
-        max_key < (uint64_t)kBucketMax && n_windows < (int64_t)UINT32_MAX;
-    std::vector<Entry> entries;     // radix path: (key, gene)
-    std::vector<uint32_t> keys32;   // bucket path: keys only (gene implied
-    if (bucket_path)                // by window position — windows are
-        keys32.resize(n_windows);   // gene-major)
-    else
-        entries.resize(n_windows);
-    uint64_t top_mult = 1;  // base^(k-1)
-    for (int i = 0; i < k - 1; i++) top_mult *= base;
-
-    // per-gene output offsets (windows are gene-major)
-    std::vector<int64_t> win_off(n_seq + 1, 0);
-    for (int64_t s = 0; s < n_seq; s++) {
-        const int64_t len = offsets[s + 1] - offsets[s];
-        win_off[s + 1] = win_off[s] + (len >= k ? len - k + 1 : 0);
-    }
-
-    const unsigned n_threads =
-        std::max(1u, std::min(std::thread::hardware_concurrency(), 8u));
-    auto fill_range = [&](int64_t s0, int64_t s1) {
-        for (int64_t s = s0; s < s1; s++) {
-            const int64_t beg = offsets[s], end = offsets[s + 1];
-            if (end - beg < k) continue;
-            int64_t out = win_off[s];
-            uint64_t key = 0;
-            for (int64_t i = 0; i < k; i++)
-                key = key * base + rank_values[concat[beg + i]];
-            if (bucket_path) {
-                keys32[out++] = (uint32_t)key;
-                for (int64_t i = beg + k; i < end; i++) {
-                    key = (key - rank_values[concat[i - k]] * top_mult) *
-                              base + rank_values[concat[i]];
-                    keys32[out++] = (uint32_t)key;
-                }
-            } else {
-                entries[out++] = {key, (uint32_t)s};
-                for (int64_t i = beg + k; i < end; i++) {
-                    key = (key - rank_values[concat[i - k]] * top_mult) *
-                              base + rank_values[concat[i]];
-                    entries[out++] = {key, (uint32_t)s};
-                }
-            }
-        }
-    };
-    if (n_threads > 1 && n_seq > 64) {
-        std::vector<std::thread> pool;
-        const int64_t per = (n_seq + n_threads - 1) / n_threads;
-        for (unsigned t = 0; t < n_threads; t++) {
-            const int64_t s0 = t * per;
-            const int64_t s1 = std::min<int64_t>(n_seq, s0 + per);
-            if (s0 < s1) pool.emplace_back(fill_range, s0, s1);
-        }
-        for (auto& th : pool) th.join();
-    } else {
-        fill_range(0, n_seq);
-    }
-
-    const int64_t n = n_windows;
-    std::vector<uint32_t> e_gene;
-    std::vector<int32_t> e_sid;
-    std::vector<int32_t> e_count;
-    e_gene.reserve((size_t)n);
-    e_sid.reserve((size_t)n);
-    e_count.reserve((size_t)n);
-    int64_t* costs = (int64_t*)calloc((size_t)(n_seq > 0 ? n_seq : 1), sizeof(int64_t));
-    int64_t total_vocab = 0;
-    int64_t vocab_size = 0;
-
-    // One multiset group = all (gene, count) runs sharing a k-mer;
-    // groups on >= 2 genes get a dense shared id and charge each member
-    // `group size` lookups (library.cpp:308,327).
-    std::vector<uint32_t> grp_gene;
-    std::vector<int32_t> grp_count;
-    auto emit_group = [&]() {
-        total_vocab++;
-        const int64_t gsize = (int64_t)grp_gene.size();
-        if (gsize >= 2) {
-            const int32_t sid = (int32_t)vocab_size++;
-            for (size_t t = 0; t < grp_gene.size(); t++) {
-                e_gene.push_back(grp_gene[t]);
-                e_sid.push_back(sid);
-                e_count.push_back(grp_count[t]);
-                costs[grp_gene[t]] += gsize;
-            }
-        }
-        grp_gene.clear();
-        grp_count.clear();
-    };
-
-    if (bucket_path) {
-        // --- bucket path: count -> exclusive prefix (in place) -> stable
-        // scatter of gene ids.  Windows were generated gene-major, so each
-        // bucket holds its genes in ascending runs without any comparison
-        // sort.
-        const int64_t n_buckets = (int64_t)max_key + 1;
-        std::vector<uint32_t> off(n_buckets, 0);
-        for (int64_t i = 0; i < n; i++) off[keys32[i]]++;
-        uint32_t run = 0;
-        for (int64_t b = 0; b < n_buckets; b++) {
-            const uint32_t c = off[b];
-            off[b] = run;
-            run += c;
-        }
-        std::vector<uint32_t> sorted_gene(n);
-        for (int64_t s = 0; s < n_seq; s++) {
-            for (int64_t w = win_off[s]; w < win_off[s + 1]; w++)
-                sorted_gene[off[keys32[w]]++] = (uint32_t)s;
-        }
-        // post-scatter, off[b] == end of bucket b
-        uint32_t beg = 0;
-        for (int64_t b = 0; b < n_buckets; b++) {
-            const uint32_t end = off[b];
-            if (end > beg) {
-                uint32_t i = beg;
-                while (i < end) {
-                    const uint32_t g = sorted_gene[i];
-                    int32_t c = 0;
-                    while (i < end && sorted_gene[i] == g) {
-                        c++;
-                        i++;
-                    }
-                    grp_gene.push_back(g);
-                    grp_count.push_back(c);
-                }
-                emit_group();
-            }
-            beg = end;
-        }
-    } else {
-        // --- radix path (keyspace too large to bucket directly): sort by
-        // key only — entries were generated gene-major and the LSD passes
-        // are stable, so equal keys stay gene-ordered with duplicate
-        // (key, gene) runs adjacent.
-        radix_sort_by_key(entries, max_key);
-        int64_t i = 0;
-        while (i < n) {
-            const uint64_t key = entries[i].key;
-            int64_t j = i;
-            while (j < n && entries[j].key == key) {
-                const uint32_t g = entries[j].gene;
-                int32_t c = 0;
-                while (j < n && entries[j].key == key && entries[j].gene == g) {
-                    c++;
-                    j++;
-                }
-                grp_gene.push_back(g);
-                grp_count.push_back(c);
-            }
-            emit_group();
-            i = j;
-        }
-    }
-
-    // --- CSR by gene (stable counting sort; sid stays ascending per gene)
-    const int64_t nnz = (int64_t)e_gene.size();
-    int64_t* ptr = (int64_t*)calloc((size_t)n_seq + 1, sizeof(int64_t));
-    for (int64_t t = 0; t < nnz; t++) ptr[e_gene[t] + 1]++;
-    for (int64_t s = 0; s < n_seq; s++) ptr[s + 1] += ptr[s];
-    int32_t* ids = (int32_t*)malloc(sizeof(int32_t) * (size_t)(nnz > 0 ? nnz : 1));
-    int32_t* cnts = (int32_t*)malloc(sizeof(int32_t) * (size_t)(nnz > 0 ? nnz : 1));
-    {
-        std::vector<int64_t> cursor(ptr, ptr + n_seq);
-        for (int64_t t = 0; t < nnz; t++) {
-            const int64_t dst = cursor[e_gene[t]]++;
-            ids[dst] = e_sid[t];
-            cnts[dst] = e_count[t];
-        }
-    }
-
-    *out_profile_ptr = ptr;
-    *out_profile_ids = ids;
-    *out_profile_counts = cnts;
-    *out_costs = costs;
-    *out_nnz = nnz;
-    *out_vocab_size = vocab_size;
-    *out_total_vocab = total_vocab;
-    return 0;
-}
-
-}  // extern "C"
+extern "C" void pt_free(void* p) { free(p); }
 
 // ---------------------------------------------------------------------------
 // Every colliding component's netclu split_until_max_k recursion

@@ -1,11 +1,11 @@
-"""Build + load the native host-index core via ctypes.
+"""Build + load the native host core of the clustering via ctypes.
 
 The shared library is compiled on first use with g++ into ``build/`` next
 to this file (plain C ABI + ctypes).  A failed build raises with the
-compiler's output: the index and the Girvan-Newman split never drop to
-their NumPy / networkx twins quietly.  Set ``PANDELOS_NATIVE=0`` to ask
-for those twins explicitly.  ``CALLS`` counts the native calls made, so
-a run can show that it went through the native core.
+compiler's output: the Girvan-Newman split never drops to its networkx
+twin quietly.  Set ``PANDELOS_NATIVE=0`` to ask for that twin
+explicitly.  ``CALLS`` counts the native calls made, so a run can show
+that it went through the native core.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _disabled = False
 # native calls made by this process, by entry point
-CALLS = {"build_index": 0, "gn_split": 0, "gn_families": 0}
+CALLS = {"gn_split": 0, "gn_families": 0}
 
 
 def _build_so() -> None:
@@ -69,21 +69,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ) < os.path.getmtime(_SRC):
             _build_so()
         lib = ctypes.CDLL(_SO)
-        lib.pt_build_index.restype = ctypes.c_int
-        lib.pt_build_index.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
         lib.pt_free.restype = None
         lib.pt_free.argtypes = [ctypes.c_void_p]
         lib.pt_gn_split.restype = ctypes.c_int
@@ -280,61 +265,3 @@ def _levels(flat, levels):
         out.append(comp)
     return out
 
-
-def native_build_index(concat: np.ndarray, offsets: np.ndarray, k: int):
-    """Returns (profile_ptr, profile_ids, profile_counts, costs,
-    vocab_size, total_vocab) or None when unavailable / key overflow."""
-    lib = _load()
-    if lib is None:
-        return None
-    concat = np.ascontiguousarray(concat, dtype=np.uint8)
-    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
-    n_seq = offsets.shape[0] - 1
-
-    p_ptr = ctypes.POINTER(ctypes.c_int64)()
-    p_ids = ctypes.POINTER(ctypes.c_int32)()
-    p_cnt = ctypes.POINTER(ctypes.c_int32)()
-    p_cost = ctypes.POINTER(ctypes.c_int64)()
-    nnz = ctypes.c_int64()
-    vocab = ctypes.c_int64()
-    total_vocab = ctypes.c_int64()
-
-    CALLS["build_index"] += 1
-    rc = lib.pt_build_index(
-        concat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(concat.shape[0]),
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(n_seq),
-        ctypes.c_int32(k),
-        ctypes.byref(p_ptr),
-        ctypes.byref(p_ids),
-        ctypes.byref(p_cnt),
-        ctypes.byref(p_cost),
-        ctypes.byref(nnz),
-        ctypes.byref(vocab),
-        ctypes.byref(total_vocab),
-    )
-    if rc != 0:
-        return None  # -2: key overflow -> NumPy wide-key fallback
-
-    def _take(p, count, dtype):
-        # ctypes.string_at is one memcpy; np.ctypeslib.as_array would build
-        # a count-element ctypes array TYPE first (~1s per 14M elements).
-        nbytes = count * np.dtype(dtype).itemsize
-        return np.frombuffer(
-            ctypes.string_at(p, nbytes), dtype=dtype
-        ).copy() if count else np.zeros(0, dtype=dtype)
-
-    try:
-        n = int(nnz.value)
-        ptr = _take(p_ptr, n_seq + 1, np.int64)
-        ids = _take(p_ids, n, np.int32)
-        cnts = _take(p_cnt, n, np.int32)
-        costs = _take(p_cost, n_seq, np.int64)
-    finally:
-        lib.pt_free(p_ptr)
-        lib.pt_free(p_ids)
-        lib.pt_free(p_cnt)
-        lib.pt_free(p_cost)
-
-    return ptr, ids, cnts, costs, int(vocab.value), int(total_vocab.value)

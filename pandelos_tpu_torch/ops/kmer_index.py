@@ -1,32 +1,32 @@
-"""The k-mer multiset index built on the card: ``csrc/kmer_index.cu``,
-its plain PyTorch version, and the copies around them.
+"""The k-mer multiset index of ``build_index`` on a torch device:
+``csrc/kmer_index.cu`` on a card, its plain PyTorch twin elsewhere, and
+the copies around them.
 
 :func:`kmer_index` takes the concatenated residues (uint8) and the
 per-gene offsets (int64) of a dataset, both on one device, and ``k``, and
-returns what the host build ``native_build_index``
-(``native/host_index.cpp::pt_build_index``) returns, bit for bit: the CSR
-by gene over the shared vocabulary (pointer, ids ascending within a
-gene, counts), the per-gene computation costs, ``vocab_size`` and
-``total_vocab``, as host NumPy arrays and ints.  CUDA tensors run the
-kernels (or raise); CPU tensors take :func:`kmer_index_plain`, which may
-use ``torch.sort`` and ``torch.unique``.  ``kmer_index.launches`` counts
-the kernels launched.
+returns the CSR by gene over the shared vocabulary (pointer, ids
+ascending within a gene, counts), the per-gene computation costs,
+``vocab_size`` and ``total_vocab``, as host NumPy arrays and ints: bit
+for bit what ``index.py``'s NumPy build and the JAX package's index
+give.  CUDA tensors run the kernels (or raise); CPU tensors take
+:func:`kmer_index_plain`, which may use ``torch.sort`` and
+``torch.unique``.  ``kmer_index.launches`` counts the kernels launched.
 
-The card path replaces the host build, which replaces the reference's
-preprocessing core (``ig/native/library.cpp:189-371``); the JAX package
-has no kernel for it (it builds on the host).  It is bound by bytes:
-passes over the windows, the entries and the groups (the source's header
-says how).  The host waits on the card three times: for the alphabet and
-the window count (1 KB), for the CSR pointer, costs and counts, and for
-the ids and counts, which come back once into pinned memory from
-PyTorch's caching host allocator; the arrays handed out are views of it.
+Both replace the reference's preprocessing core
+(``ig/native/library.cpp:189-371``); the JAX package has no kernel for
+it (it builds on the host).  The card path is bound by bytes: passes
+over the windows, the entries and the groups (the source's header says
+how).  The host waits on the card three times: for the alphabet and the
+window count (1 KB), for the CSR pointer, costs and counts, and for the
+ids and counts, which come back once into pinned memory from PyTorch's
+caching host allocator; the arrays handed out are views of it.
 
 Both versions take a window's key as its k dense ranks (the alphabet in
-ascending byte order, as the host build) packed as ``(key << gene_bits)
-| gene``, and raise where that does not fit in 63 bits or the windows
-pass 2^31.  :func:`fits_on_card` makes that test on the host arrays
-before anything goes up, so ``build_index`` gives such a dataset to the
-host build without touching the card.
+ascending byte order) packed as ``(key << gene_bits) | gene``, and raise
+where that does not fit in 63 bits or the windows pass 2^31.
+:func:`fits_packed_key` makes that test on the host arrays before
+anything goes up, so ``build_index`` gives such a dataset to its NumPy
+build without touching the device.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 from pandelos_tpu_torch import tracing
 
 # (profile_ptr, profile_ids, profile_counts, computation_costs,
-#  vocab_size, total_vocab), as native_build_index returns them
+#  vocab_size, total_vocab): KmerIndex's fields of those names
 IndexArrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int]
 
 # the composite key (key << gene_bits) | gene stays a non-negative int64
@@ -74,11 +74,15 @@ def _host_tensor(a: np.ndarray, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
 
-def fits_on_card(concat: np.ndarray, offsets: np.ndarray, k: int) -> bool:
+def fits_packed_key(concat: np.ndarray, offsets: np.ndarray,
+                    k: int) -> bool:
     """Whether :func:`kmer_index` takes the host arrays ``concat`` and
-    ``offsets`` at ``k``: the packed key fits in 63 bits and the windows
-    stay under 2^31, by a census of the residues on the host."""
+    ``offsets`` at ``k``: there is a gene, the packed key fits in 63 bits
+    and the windows stay under 2^31, by a census of the residues on the
+    host."""
     G = offsets.shape[0] - 1
+    if G < 1:
+        return False
     n = int(np.maximum(np.diff(offsets) - k + 1, 0).sum())
     n_present = int(torch.count_nonzero(torch.bincount(
         _host_tensor(concat, np.uint8), minlength=256))) if concat.size else 0
@@ -87,9 +91,9 @@ def fits_on_card(concat: np.ndarray, offsets: np.ndarray, k: int) -> bool:
 
 def _refuse(k: int, n_present: int, n_genes: int, n: int) -> NoReturn:
     raise ValueError(
-        f"the card build cannot take {n} windows of k {k} over "
+        f"the device build cannot take {n} windows of k {k} over "
         f"{n_present} residues and {n_genes} genes: the packed key passes "
-        f"63 bits or the windows 2^31 (fits_on_card)")
+        f"63 bits or the windows 2^31 (fits_packed_key)")
 
 
 def _empty(n_genes: int) -> IndexArrays:
@@ -264,10 +268,9 @@ def kmer_index(concat: torch.Tensor, offsets: torch.Tensor,
     """The index of the genes ``concat[offsets[g]:offsets[g+1]]`` (uint8
     residues, int64 offsets, one device) at ``k``: (profile_ptr,
     profile_ids, profile_counts, computation_costs, vocab_size,
-    total_vocab) as ``native_build_index`` gives them.  CUDA tensors run
-    ``csrc/kmer_index.cu``; CPU tensors take :func:`kmer_index_plain`.
-    Both raise ValueError where the packed key does not fit (see
-    :func:`fits_on_card`)."""
+    total_vocab).  CUDA tensors run ``csrc/kmer_index.cu``; CPU tensors
+    take :func:`kmer_index_plain`.  Both raise ValueError where the
+    packed key does not fit (see :func:`fits_packed_key`)."""
     _check_args(concat, offsets, k)
     if concat.device.type == "cpu":
         return kmer_index_plain(concat, offsets, k)
@@ -280,10 +283,10 @@ kmer_index.launches = 0
 kmer_index.bytes_to_host = 0
 
 
-def index_on_card(concat: np.ndarray, offsets: np.ndarray, k: int,
-                  device) -> IndexArrays:
-    """:func:`kmer_index` of host arrays, which :func:`fits_on_card`
-    passed, on the card ``device``: the inputs go up once; the span
+def index_on_device(concat: np.ndarray, offsets: np.ndarray, k: int,
+                    device) -> IndexArrays:
+    """:func:`kmer_index` of host arrays, which :func:`fits_packed_key`
+    passed, on ``device``: on a card the inputs go up once.  The span
     ``index.device`` records the windows, nnz, ``total_vocab``,
     ``vocab_size``, the kernels launched, the bytes each way and (through
     :func:`tracing.blocked`) the host's waits."""
@@ -292,7 +295,8 @@ def index_on_card(concat: np.ndarray, offsets: np.ndarray, k: int,
         to_host = kmer_index.bytes_to_host
         c = _host_tensor(concat, np.uint8).to(device)
         o = _host_tensor(offsets, np.int64).to(device)
-        sp.set("bytes_to_card", c.numel() + 8 * o.numel())
+        if c.device.type != "cpu":
+            sp.set("bytes_to_card", c.numel() + 8 * o.numel())
         out = kmer_index(c, o, k)
         sp.set("launches", kmer_index.launches - launches)
         sp.set("bytes_to_host", kmer_index.bytes_to_host - to_host)

@@ -98,6 +98,7 @@ def _score_and_network(ds, index, k, config, capture, devices):
             edges, rstats = refmod.build_network_reference(
                 fcells, index.seq_genome, ds.n_genomes
             )
+            del cells, fcells  # freed inside the span, not after it
             return NetworkResult(
                 edges=edges,
                 n_inter_edges=rstats["n_inter_edges"],
@@ -128,19 +129,19 @@ def _score_and_network(ds, index, k, config, capture, devices):
         cells = compute_cells(index, config, capture=capture,
                               devices=devices)
     with tracing.span("network"):
-        finalized = finalize_scores(cells, index.kseq_lengths, k)
-        return build_network(
-            finalized, index.seq_genome, ds.n_genomes, ds.n_sequences
-        )
+        net = build_network(finalize_scores(cells, index.kseq_lengths, k),
+                            index.seq_genome, ds.n_genomes, ds.n_sequences)
+        del cells  # freed inside the span, not after it
+        return net
 
 
 def _index_device(config, devices):
     """The device the index is built on: the first shard's device of the
     engine, resolved as the engine resolves it (``resolve_shards`` under
     ``"cuda"`` and ``"xla"``, ``resolve_device`` under ``"dense"``), so
-    that a CUDA run without a card raises here as it would there; None,
-    the host build, for the host backends and the -c mode, which runs no
-    device stage."""
+    that a CUDA run without a card raises here as it would there; None
+    (the CPU) for the host backends and the -c mode, which run no device
+    stage."""
     backend = resolve_backend(config.backend)
     if config.only_complexity or backend not in ("cuda", "xla", "dense"):
         return None
@@ -237,21 +238,22 @@ def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
 
     if config.only_complexity:
         # The -c mode stops after the complexity report (Pangenes.java:33-36).
-        with tracing.span("stats"):
-            report = index.complexity_report()
-        spans = job.records()
-        return PipelineResult(
-            k=k,
-            n_sequences=ds.n_sequences,
-            n_genomes=ds.n_genomes,
-            edges=[],
-            families=[],
-            singletons=[],
-            clus_lines=[],
-            phase_times=_phase_times(spans),
-            stats={"complexity": report},
-            spans=spans,
-        )
+        with tracing.span("stats") as sp:
+            spans = job.records()
+            result = PipelineResult(
+                k=k,
+                n_sequences=ds.n_sequences,
+                n_genomes=ds.n_genomes,
+                edges=[],
+                families=[],
+                singletons=[],
+                clus_lines=[],
+                phase_times=_phase_times(spans),
+                stats={"complexity": index.complexity_report()},
+                spans=spans,
+            )
+            del ds, index  # freed inside the span, not after it
+        return _with_last_span(result, sp)
 
     backend = resolve_backend(config.backend)
     net = _score_and_network(ds, index, k, config, capture, devices)
@@ -294,7 +296,7 @@ def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
             with open(out_prefix + ".report", "w") as fh:
                 fh.write("\n".join(report) + ("\n" if report else ""))
 
-    with tracing.span("stats"):
+    with tracing.span("stats") as sp:
         # degree distribution of the similarity network (the reference
         # prints it after network construction, Pangenes.java:202-219)
         from pandelos_tpu_torch.io.net import EdgeList
@@ -328,27 +330,39 @@ def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
                 for kk, v in sorted(clusters.family_size_distr.items())
             },
         }
+        # the spans closed so far: every one but this
+        spans = job.records()
+        phase_times = _phase_times(spans)
         if out_prefix:
-            # the spans closed so far: every one but this
-            spans = job.records()
             with open(out_prefix + ".stats.json", "w") as fh:
-                json.dump({"stats": stats, "phase_times": _phase_times(spans),
+                json.dump({"stats": stats, "phase_times": phase_times,
                            "trace": {"job": job.id, "spans": spans}},
                           fh, indent=2)
+        result = PipelineResult(
+            k=k,
+            n_sequences=ds.n_sequences,
+            n_genomes=ds.n_genomes,
+            edges=net.edges,
+            families=fams,
+            singletons=singles,
+            clus_lines=lines,
+            phase_times=phase_times,
+            stats=stats,
+            spans=spans,
+        )
+        # the job's intermediates (the index and the profiles padded from
+        # it, the dataset, the network) are freed inside the span, not
+        # after it
+        del ds, index, net, clusters
+    return _with_last_span(result, sp)
 
-    spans = job.records()
-    return PipelineResult(
-        k=k,
-        n_sequences=ds.n_sequences,
-        n_genomes=ds.n_genomes,
-        edges=net.edges,
-        families=fams,
-        singletons=singles,
-        clus_lines=lines,
-        phase_times=_phase_times(spans),
-        stats=stats,
-        spans=spans,
-    )
+
+def _with_last_span(result: PipelineResult, last) -> PipelineResult:
+    """``result``, built inside its job's last top-level span ``last``,
+    with that span's record and seconds added once it has closed."""
+    result.spans.append(last.record())
+    result.phase_times[last.name] = last.seconds
+    return result
 
 
 def cluster_from_net(

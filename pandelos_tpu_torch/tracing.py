@@ -34,8 +34,8 @@ from __future__ import annotations
 
 import contextvars
 import itertools
+import os
 import time
-import uuid
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
@@ -59,7 +59,8 @@ class Job:
     __slots__ = ("id", "anchor_ns", "perf0_ns", "spans")
 
     def __init__(self):
-        self.id = uuid.uuid4().hex[:16]
+        # 16 hex digits; uuid4 took some 30 us here, before the first span
+        self.id = os.urandom(8).hex()
         self.anchor_ns = time.time_ns()
         self.perf0_ns = time.perf_counter_ns()
         self.spans: List[Span] = []

@@ -34,7 +34,7 @@ PORT_ONLY_NETWORK = {"device", "join_kernel", "bound_bits_mode"}
 # "trace" block; the JAX package has none of them
 PORT_ONLY_TIMING = {
     "phase_times": {"net_write", "clus_write", "report", "stats",
-                    "index.encode", "index.native", "cluster.components",
+                    "index.encode", "index.device", "cluster.components",
                     "cluster.split", "cluster.assemble", "score.dense_pass",
                     "score.host_corrections"},
     "phase_s": {"host.stats", "wait"},

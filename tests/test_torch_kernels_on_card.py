@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each join kernel against its plain
 PyTorch version bit for bit (seeded tables, then adversarial tables and
 pair lists), the k-mer index build against its plain version and the
-host build (seeded, adversarial and the xanthomonas14 preset's data),
+NumPy build (seeded, adversarial and the xanthomonas14 preset's data),
 the wrappers' refusals, no fallback when a kernel cannot load, and the
 engine's paths to the goldens through the kernels.  Every test needs an
 NVIDIA card and skips without one.  The file imports neither JAX nor
@@ -20,9 +20,12 @@ import torch
 
 from pandelos_tpu_torch import kernels
 from pandelos_tpu_torch.config import PipelineConfig
-from pandelos_tpu_torch.index import _encode_sequences, build_index
+from pandelos_tpu_torch.index import (
+    _encode_sequences,
+    _numpy_index,
+    build_index,
+)
 from pandelos_tpu_torch.io.faa import FaaDataset
-from pandelos_tpu_torch.native import native_build_index
 from pandelos_tpu_torch.ops import kmer_index as tki
 from pandelos_tpu_torch.ops import lane_join as tlj
 from pandelos_tpu_torch.ops import pair_join as tpj
@@ -267,9 +270,9 @@ INDEX_CASES = ["seeded0", "seeded1", "seeded2", "empty_and_short",
 @pytest.mark.parametrize("name", INDEX_CASES)
 def test_kmer_index_kernel_matches_plain_and_host(card, name):
     seqs, k = _index_case(name)
-    concat, offsets, _ = _encode_sequences(seqs)
+    concat, offsets, lengths = _encode_sequences(seqs)
     plain = tki.kmer_index(torch.tensor(concat), torch.from_numpy(offsets), k)
-    host = native_build_index(concat, offsets, k)
+    host = _numpy_index(concat, offsets, k, np.maximum(lengths - k + 1, 0))
     launches = tki.kmer_index.launches
     got = tki.kmer_index(torch.tensor(concat).to(card),
                          torch.from_numpy(offsets).to(card), k)
@@ -305,7 +308,7 @@ def test_kmer_index_refuses_on_card(card):
     assert tki.kmer_index.launches == launches
     seqs = ["MKVLAWPQEDCGHINRSTFY" * 3] * 2
     concat, off, _ = _encode_sequences(seqs)
-    assert not tki.fits_on_card(concat, off, 16)
+    assert not tki.fits_packed_key(concat, off, 16)
     with pytest.raises(ValueError, match="63 bits"):
         tki.kmer_index(torch.tensor(concat).to(card),
                        torch.from_numpy(off).to(card), 16)
@@ -319,19 +322,14 @@ def test_kmer_index_refuses_on_card(card):
 @pytest.mark.cuda
 def test_default_pipeline_builds_the_index_on_card(card, tmp_path):
     """A default run on the card builds the index with the kernels: the
-    launch counter moves, the ``index`` span reads ``on_card`` 1 with an
-    ``index.device`` child and no ``index.native``, and the outputs are
-    the goldens."""
-    from pandelos_tpu_torch.native import loader
-
+    launch counter moves, the ``index`` span reads ``on_card`` 1 with one
+    ``index.device`` child, and the outputs are the goldens."""
     launches = tki.kmer_index.launches
-    native = loader.CALLS["build_index"]
     prefix = str(tmp_path / "synth_small")
     res = run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
                        PipelineConfig(row_block=16, col_block=128,
                                       candidate_cap=64))
     assert tki.kmer_index.launches > launches
-    assert loader.CALLS["build_index"] == native
     index = [s for s in res.spans if s["name"] == "index"]
     assert len(index) == 1 and index[0]["counters"]["on_card"] == 1
     device = [s for s in res.spans if s["name"] == "index.device"]
@@ -340,7 +338,6 @@ def test_default_pipeline_builds_the_index_on_card(card, tmp_path):
     for key in ("windows", "nnz", "total_vocab", "vocab_size", "launches",
                 "bytes_to_card", "bytes_to_host", "wait_s"):
         assert counters[key] > 0, key
-    assert "index.native" not in {s["name"] for s in res.spans}
     for suffix in (".net", ".clus"):
         assert filecmp.cmp(prefix + suffix,
                            os.path.join(GOLDEN, "synth_small" + suffix),

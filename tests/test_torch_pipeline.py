@@ -112,11 +112,16 @@ def test_index_matches_jax_and_round_trips(tmp_path, name, faa):
 
 
 def test_native_core_is_used():
+    """The native host core splits a colliding component (two genes of
+    genome 0 in one component) in one ``pt_gn_families`` call."""
+    from pandelos_tpu_torch.cluster import cluster_network
     from pandelos_tpu_torch.native import loader
 
-    before = loader.CALLS["build_index"]
-    build_index(read_faa(os.path.join(DATA, "toy.faa")), k=4)
-    assert loader.CALLS["build_index"] == before + 1
+    before = loader.CALLS["gn_families"]
+    res = cluster_network([(0, 2, 0.9), (1, 3, 0.9), (2, 1, 0.5)],
+                          np.array([0, 0, 1, 1]), 4)
+    assert loader.CALLS["gn_families"] == before + 1
+    assert res.families == [[0, 2], [1, 3]]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):

@@ -72,9 +72,9 @@ def test_profiled_run_writes_the_job_spans(tmp_path):
                                             "pandelos.stats")
     assert (tops[0], tops[-1]) == ("ingest", "stats")
     (index,) = [e for e in events if e["name"] == "pandelos.index"]
-    (native,) = [e for e in events if e["name"] == "pandelos.index.native"]
-    assert index["ts"] <= native["ts"]
-    assert native["ts"] + native["dur"] <= index["ts"] + index["dur"]
+    (device,) = [e for e in events if e["name"] == "pandelos.index.device"]
+    assert index["ts"] <= device["ts"]
+    assert device["ts"] + device["dur"] <= index["ts"] + index["dur"]
 
 
 def _trace(path, kernels):
