@@ -18,6 +18,11 @@ from typing import List
 
 import numpy as np
 
+from pandelos_tpu_torch.native.loader import (
+    native_available,
+    native_write_net,
+)
+
 
 class EdgeList:
     """Array-backed undirected edge sequence.
@@ -101,34 +106,62 @@ def java_double_str(v: float) -> str:
     return ("-" if sign else "") + f"{mant}E{e10}"
 
 
-def write_net(path: str, edges) -> None:
+def canonical_edges(edges):
+    """``(a, b, w32, sorted_input)``: the edges with src <= dst, sorted by
+    (src, dst), the LAST score of a duplicate pair kept (the dict overwrite
+    in PangeneNet's adjacency), scores narrowed to f32.  Where the
+    canonical keys ``(src << 32) | dst`` are strictly ascending already,
+    as the device path's ``host.edges`` builds them, no sort runs:
+    ``sorted_input`` says so."""
+    el = EdgeList.from_any(edges)
+    a = np.minimum(el.a, el.b)
+    b = np.maximum(el.a, el.b)
+    w32 = el.w.astype(np.float32)
+    key = (a << np.int64(32)) | b
+    if np.all(key[1:] > key[:-1]):
+        return a, b, w32, True
+    # last occurrence wins: unique-first over the reversed stream
+    _, first_rev = np.unique(key[::-1], return_index=True)
+    sel = len(key) - 1 - first_rev  # ascending (a, b) order
+    return a[sel], b[sel], w32[sel], False
+
+
+def write_net(path: str, edges) -> dict:
     """Write edges as (src, dst, score) with src <= dst, sorted.
 
     ``edges`` is an EdgeList or iterable of (int, int, float-like).  Scores
     are widened from f32 to double before printing, matching the reference
     writer; on duplicate (src, dst) the LAST score wins (the dict overwrite
-    in PangeneNet's adjacency)."""
-    el = EdgeList.from_any(edges)
-    if len(el) == 0:
-        open(path, "w").close()
-        return
-    a = np.minimum(el.a, el.b)
-    b = np.maximum(el.a, el.b)
-    w32 = el.w.astype(np.float32)
-    key = (a << np.int64(32)) | b
-    # last occurrence wins: unique-first over the reversed stream
-    _, first_rev = np.unique(key[::-1], return_index=True)
-    sel = len(key) - 1 - first_rev  # ascending (a, b) order
+    in PangeneNet's adjacency).  The native library formats the lines on
+    the host's cores (``native_write_net``); without it
+    (``PANDELOS_NATIVE=0``) :func:`write_net_plain` writes the same bytes.
+    Returns the ``net_write`` span's counters: ``native`` (1 where the
+    native call wrote the file), ``sorted_input`` (1 where the input was
+    canonical already and no sort ran), ``threads`` and ``bytes``."""
+    if not native_available():
+        return write_net_plain(path, edges)
+    a, b, w32, sorted_input = canonical_edges(edges)
+    n_bytes, threads = native_write_net(path, a, b, w32)
+    return {"native": 1, "sorted_input": int(sorted_input),
+            "threads": threads, "bytes": n_bytes}
+
+
+def write_net_plain(path: str, edges) -> dict:
+    """:func:`write_net`'s Python twin: the same bytes and counters
+    (``native`` and ``threads`` 0)."""
+    a, b, w32, sorted_input = canonical_edges(edges)
     # java_double_str is pure-Python; scores repeat heavily (small-integer
     # rationals), so format each distinct f32 value once and map back
-    uvals, inv = np.unique(w32[sel], return_inverse=True)
+    uvals, inv = np.unique(w32, return_inverse=True)
     suffix = ["\t" + java_double_str(v) + "\n" for v in uvals.tolist()]
-    rows = [
+    text = "".join(
         f"{x}\t{y}{suffix[i]}"
-        for x, y, i in zip(a[sel].tolist(), b[sel].tolist(), inv.tolist())
-    ]
+        for x, y, i in zip(a.tolist(), b.tolist(), inv.tolist())
+    )
     with open(path, "w") as fh:
-        fh.write("".join(rows))
+        fh.write(text)
+    return {"native": 0, "sorted_input": int(sorted_input), "threads": 0,
+            "bytes": len(text)}
 
 
 def read_net(path: str) -> EdgeList:

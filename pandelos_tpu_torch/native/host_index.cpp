@@ -1,7 +1,8 @@
-// Native host core of the port's clustering: one Girvan-Newman split
+// Native host core of the port: the clustering's one Girvan-Newman split
 // level (pt_gn_split), every colliding component's whole recursion on a
-// pool of threads (pt_gn_families), and the CPython set order that
-// recursion replays (pt_pyset_order).
+// pool of threads (pt_gn_families), the CPython set order that recursion
+// replays (pt_pyset_order), and the .net writer's formatting on a pool of
+// threads (pt_format_net).
 //
 // The file's name is older than its content: the k-mer index is built
 // by ops/kmer_index.py (csrc/kmer_index.cu on a card, its plain PyTorch
@@ -9,8 +10,12 @@
 //
 // C ABI for ctypes; buffers are malloc'd here and released by pt_free.
 
+#include <charconv>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
+#include <system_error>
 #include <algorithm>
 #include <atomic>
 #include <chrono>
@@ -488,9 +493,153 @@ class ComponentSplitter {
     GnScratch gn_;
 };
 
+// ---------------------------------------------------------------------------
+// The .net writer's lines (io/net.py::write_net): "a\tb\tscore\n" an edge,
+// the f32 score widened to double and printed as Java's Double.toString
+// prints it (PangeneNet.java:171), which io/net.py::java_double_str
+// renders: the shortest digits that round-trip, plain in [1e-3, 1e7) with
+// ".0" on integral values, else d.dddE<exp> with a bare exponent.
+
+constexpr int64_t kLinesPerThread = 1 << 16;  // the least a thread takes
+constexpr size_t kMaxLine = 2 * 20 + 2 + 32 + 1;  // 2 int64, 2 tabs, score, \n
+
+char* put(char* p, const char* s, size_t n) {
+    memcpy(p, s, n);
+    return p + n;
+}
+
+char* java_double(char* p, double v) {
+    if (std::isnan(v)) return put(p, "NaN", 3);
+    if (std::signbit(v)) {
+        *p++ = '-';
+        v = -v;
+    }
+    if (std::isinf(v)) return put(p, "Infinity", 8);
+    if (v == 0.0) return put(p, "0.0", 3);
+    // shortest round-trip digits in scientific form: d[.ddd]e(+|-)xx
+    char sci[40];
+    const char* end =
+        std::to_chars(sci, sci + sizeof sci, v, std::chars_format::scientific)
+            .ptr;
+    char digits[24];
+    int n = 0;
+    const char* q = sci;
+    for (; *q != 'e'; q++)
+        if (*q != '.') digits[n++] = *q;
+    int exp = 0;
+    std::from_chars(q + (q[1] == '+' ? 2 : 1), end, exp);
+    if (v >= 1e-3 && v < 1e7) {  // plain: exp in [-3, 6]
+        if (exp < 0) {
+            p = put(p, "0.", 2);
+            for (int i = 0; i < -exp - 1; i++) *p++ = '0';
+            return put(p, digits, n);
+        }
+        for (int i = 0; i <= exp; i++) *p++ = i < n ? digits[i] : '0';
+        *p++ = '.';
+        if (n <= exp + 1) {
+            *p++ = '0';
+            return p;
+        }
+        return put(p, digits + exp + 1, n - exp - 1);
+    }
+    *p++ = digits[0];
+    *p++ = '.';
+    p = n > 1 ? put(p, digits + 1, n - 1) : put(p, "0", 1);
+    *p++ = 'E';
+    return std::to_chars(p, p + 8, exp).ptr;
+}
+
+// Lines [lo, hi) into a malloc'd buffer, grown as it fills.
+struct NetChunk {
+    char* buf = nullptr;
+    size_t len = 0;
+    bool ok = true;
+
+    void format(const int64_t* a, const int64_t* b, const float* w,
+                int64_t lo, int64_t hi) {
+        size_t cap = (size_t)(hi - lo) * 32 + kMaxLine;
+        buf = (char*)malloc(cap);
+        if (!buf) {
+            ok = false;
+            return;
+        }
+        char* p = buf;
+        for (int64_t i = lo; i < hi; i++) {
+            if ((size_t)(p - buf) + kMaxLine > cap) {
+                const size_t at = (size_t)(p - buf);
+                cap += cap / 2;
+                char* grown = (char*)realloc(buf, cap);
+                if (!grown) {
+                    ok = false;
+                    return;
+                }
+                buf = grown;
+                p = buf + at;
+            }
+            p = std::to_chars(p, p + 20, a[i]).ptr;
+            *p++ = '\t';
+            p = std::to_chars(p, p + 20, b[i]).ptr;
+            *p++ = '\t';
+            p = java_double(p, (double)w[i]);
+            *p++ = '\n';
+        }
+        len = (size_t)(p - buf);
+    }
+};
+
 }  // namespace
 
 extern "C" {
+
+// The .net text of the n edges (a[i], b[i], w[i]), in the order given,
+// into a malloc'd buffer (release with pt_free) of *out_len bytes.
+// n_threads threads (0: the host's cores), each taking at least
+// kLinesPerThread lines, format contiguous chunks that are joined in order,
+// so the bytes do not depend on the count; *out_threads receives the count
+// used.  Returns 0, -1 on bad arguments, -3 if memory ran out.
+int pt_format_net(const int64_t* a, const int64_t* b, const float* w,
+                  int64_t n, int32_t n_threads, char** out_buf,
+                  int64_t* out_len, int32_t* out_threads) {
+    if (n < 0 || n_threads < 0 || !out_buf || !out_len || !out_threads)
+        return -1;
+    int64_t workers = n_threads ? n_threads
+                                : (int64_t)std::thread::hardware_concurrency();
+    workers = std::max<int64_t>(
+        1, std::min(workers, (n + kLinesPerThread - 1) / kLinesPerThread));
+    std::vector<NetChunk> chunks(workers);
+    auto run = [&](int64_t t) {
+        chunks[t].format(a, b, w, n * t / workers, n * (t + 1) / workers);
+    };
+    bool ok = true;
+    if (workers == 1) {
+        run(0);
+    } else {
+        std::vector<std::thread> pool;
+        try {
+            for (int64_t t = 0; t < workers; t++) pool.emplace_back(run, t);
+        } catch (const std::system_error&) {
+            ok = false;  // a chunk was never formatted
+        }
+        for (auto& th : pool) th.join();
+    }
+    size_t total = 0;
+    for (const auto& c : chunks) {
+        total += c.len;
+        ok = ok && c.ok;
+    }
+    char* out = ok ? (char*)malloc(total ? total : 1) : nullptr;
+    size_t at = 0;
+    for (auto& c : chunks) {
+        if (out) memcpy(out + at, c.buf, c.len);
+        at += c.len;
+        free(c.buf);  // one chunk at a time: at most twice the file held
+    }
+    if (!out) return -3;
+    *out_buf = out;
+    *out_len = (int64_t)total;
+    *out_threads = (int32_t)workers;
+    return 0;
+}
 
 // One Girvan-Newman split level over n nodes and the m edges (eu[e], ev[e])
 // in insertion order (gn_split_flat): out_labels receives the components;

@@ -1,11 +1,12 @@
-"""Build + load the native host core of the clustering via ctypes.
+"""Build + load the port's native host core via ctypes: the clustering's
+Girvan-Newman split and the ``.net`` writer's formatting.
 
 The shared library is compiled on first use with g++ into ``build/`` next
 to this file (plain C ABI + ctypes).  A failed build raises with the
-compiler's output: the Girvan-Newman split never drops to its networkx
-twin quietly.  Set ``PANDELOS_NATIVE=0`` to ask for that twin
-explicitly.  ``CALLS`` counts the native calls made, so a run can show
-that it went through the native core.
+compiler's output: neither the Girvan-Newman split nor the ``.net``
+writer drops to its Python twin quietly.  Set ``PANDELOS_NATIVE=0`` to
+ask for the twins explicitly.  ``CALLS`` counts the native calls made,
+so a run can show that it went through the native core.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import os
 import subprocess
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -27,7 +28,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _disabled = False
 # native calls made by this process, by entry point
-CALLS = {"gn_split": 0, "gn_families": 0}
+CALLS = {"gn_split": 0, "gn_families": 0, "format_net": 0}
 
 
 def _build_so() -> None:
@@ -87,6 +88,11 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pt_gn_families.argtypes = (
             [ctypes.c_int64] * 3 + [i64p] * 7 + [ctypes.c_int32] + [i64p] * 4
             + [ctypes.POINTER(ctypes.c_double), ctypes.POINTER(i64p), i64p])
+        lib.pt_format_net.restype = ctypes.c_int
+        lib.pt_format_net.argtypes = [
+            i64p, i64p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p), i64p,
+            ctypes.POINTER(ctypes.c_int32)]
         _lib = lib
         return _lib
 
@@ -97,6 +103,44 @@ def native_available() -> bool:
 
 def _i64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def native_write_net(
+    path: str, a: np.ndarray, b: np.ndarray, w32: np.ndarray,
+    n_threads: int = 0,
+) -> Optional[Tuple[int, int]]:
+    """Write the ``.net`` lines of the edges ``(a[i], b[i], w32[i])``, in
+    the order given, to ``path``: ``pt_format_net`` formats them on
+    ``n_threads`` native threads (0: the host's cores), the GIL released,
+    into one buffer that one ``write`` puts in the file.  Returns (bytes
+    written, threads used), or None when the native library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    b = np.ascontiguousarray(b, dtype=np.int64)
+    w32 = np.ascontiguousarray(w32, dtype=np.float32)
+    if not (len(a) == len(b) == len(w32)):
+        raise ValueError("native_write_net: a, b and w32 differ in length")
+    buf = ctypes.c_void_p()
+    n_bytes = ctypes.c_int64()
+    used = ctypes.c_int32()
+    CALLS["format_net"] += 1
+    rc = lib.pt_format_net(
+        _i64(a), _i64(b), w32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(len(a)), ctypes.c_int32(n_threads),
+        ctypes.byref(buf), ctypes.byref(n_bytes), ctypes.byref(used))
+    if rc != 0:
+        raise RuntimeError(f"pt_format_net failed ({rc})")
+    try:
+        with open(path, "wb") as fh:
+            if n_bytes.value:
+                fh.write((ctypes.c_char * n_bytes.value).from_address(
+                    buf.value))
+    finally:
+        lib.pt_free(buf)
+    return n_bytes.value, used.value
 
 
 def native_gn_split(

@@ -261,8 +261,9 @@ def _run_job(job, input_faa, out_prefix, config, dataset, capture, devices):
     with tracing.span("net_write") as sp:
         sp.set("edges", len(net.edges))
         if out_prefix and config.write_net:
-            write_net(out_prefix + ".net", net.edges)
-            sp.set("bytes", os.path.getsize(out_prefix + ".net"))
+            for key, value in write_net(out_prefix + ".net",
+                                        net.edges).items():
+                sp.set(key, value)
         if config.checkpoint_dir:
             write_net(os.path.join(config.checkpoint_dir, "network.net"),
                       net.edges)
