@@ -702,13 +702,25 @@ class Runner:
             lambda o: self.flatten_join(*o, cand_cap, pair_cap), outs)
 
 
-def get_runner(index: KmerIndex, padded, config, shards) -> Runner:
-    """Runner cached on the index per (padded shape, shard group or
-    device, join kernel)."""
+def _runner_key(padded, config, shards) -> tuple:
     from pandelos_tpu_torch.parallel.shards import ShardGroup
 
     where = shards.key if isinstance(shards, ShardGroup) else str(shards)
-    rkey = ("runner", padded.ids.shape, where, config.join_kernel)
+    return ("runner", padded.ids.shape, where, config.join_kernel)
+
+
+def cached_runner(index: KmerIndex, padded, config,
+                  shards) -> Optional[Runner]:
+    """The runner :func:`get_runner` would return, where an earlier run
+    on this index built it; else None."""
+    return getattr(index, "_pad_cache", {}).get(
+        _runner_key(padded, config, shards))
+
+
+def get_runner(index: KmerIndex, padded, config, shards) -> Runner:
+    """Runner cached on the index per (padded shape, shard group or
+    device, join kernel)."""
+    rkey = _runner_key(padded, config, shards)
     cache = index._pad_cache  # populated by pad_profiles
     runner = cache.get(rkey)
     if runner is None:
@@ -920,8 +932,8 @@ def memory_model(
 
 
 def hbm_model(index: KmerIndex, config, device,
-              ring: Optional[bool] = None, n_devices: Optional[int] = None,
-              heavy_slots: int = 0) -> Optional[dict]:
+              ring: Optional[bool] = None,
+              n_devices: Optional[int] = None) -> Optional[dict]:
     """:func:`memory_model` against the card of ``device``; None where no
     check applies: on the CPU (host RAM), and under
     ``PANDELOS_IGNORE_HBM_MODEL=1`` (the model is analytic, not
@@ -931,7 +943,7 @@ def hbm_model(index: KmerIndex, config, device,
     if torch.device(device).type != "cuda":
         return None
     return memory_model(index, config, device=device, ring=ring,
-                        n_devices=n_devices, heavy_slots=heavy_slots)
+                        n_devices=n_devices)
 
 
 def check_hbm_fit(index: KmerIndex, config, device,
@@ -950,13 +962,13 @@ def check_hbm_fit(index: KmerIndex, config, device,
         hint = ("the replicated engine would fit "
                 f"(~{mm['replicated_bytes_per_device'] / 1e9:.1f}GB): drop "
                 f"config.ring_extract" if mm["fits_replicated"] else
-                "shard the input by genome subsets or add devices")
+                _CELLS_HINT)
     else:
         mode = "the replicated engine"
         hint = ("set config.ring_extract=True (signatures shard over the "
                 "devices and rotate; ops/ring.py)"
                 if mm["fits_ring"] and mm["n_devices"] > 1 else
-                "shard the input by genome subsets or add devices")
+                _CELLS_HINT)
     raise MemoryError(
         f"{mode} needs ~{mm['total_bytes']/1e9:.1f}GB per device "
         f"(card {mm['budget_bytes']/1e9:.1f}GB): signatures "
@@ -967,6 +979,269 @@ def check_hbm_fit(index: KmerIndex, config, device,
         f"{mm['bound_bits_bytes']/1e9:.1f}GB; {hint}; "
         f"PANDELOS_IGNORE_HBM_MODEL=1 overrides"
     )
+
+
+# The stage-wise memory plan of compute_network_device.  memory_model sums
+# every stage's worst case (the dry run's report); the plan holds each
+# stage to what its code keeps live at once.  Bytes a unit, each set as an
+# upper bound of the per-span peaks the card showed at the shapes of the
+# benchmark's first three cells (a calibration, PERF.md): a signature
+# histogram chunk's [4096, B] masses, their f32 cast and the bf16
+# round-up's bit work, an element
+_HIST_ELEM_BYTES = 20
+# a bound-bit row block's [4096, n_pos] products (this block's and the
+# last), the scaled test and its int8 bits, an element
+_BITS_ELEM_BYTES = 20
+# an extraction step's [rows, columns] bound products and tests, its
+# masks, and the rank-select's position, rank and base of a set bit,
+# an element with every bit set
+_STEP_ELEM_BYTES = 72
+# flatten + join + validity over a flat pair slot: the slot's row fill,
+# base and slot index, the pair ids, the join kernel's three counters and
+# the validity test
+_PAIR_LIVE_BYTES = 100
+# what the BBH holds of the main rows' flat pair list to its end: the
+# pair ids, the three counters and the validity, a slot
+_PAIR_HELD_BYTES = 21
+# a [rows, K] slot handed to the device BBH: while its segment is built
+# (the flat scores and fractions gathered back into [rows, K]), what the
+# BBH holds of it to the end (scores, fractions, long candidate and genome
+# ids, the cell masks), and the BBH's transients over one segment
+_HANDOVER_SLOT_BYTES = 40
+_SEG_SLOT_BYTES = 40
+_BBH_LIVE_SLOT_BYTES = 80
+# a slot of the heavy rows' segment ([rows, most valid cells of a row]):
+# candidate ids, the three counters, validity
+_HEAVY_SEG_SLOT_BYTES = 17
+# an emitted cell's slot (``edge_cap``): row, column, counters, acceptance
+_EMIT_SLOT_BYTES = 32
+# the share of the card the plan leaves unplanned: the caching
+# allocator's rounding and fragmentation, cuBLAS's workspace, and kernel
+# images loaded after the plan is made
+_MARGIN_SHARE = 0.05
+
+
+def card_memory(device) -> Optional[int]:
+    """The memory plan's budget on the card of ``device``: the bytes this
+    process can still hold there, what CUDA reports free and what
+    the caching allocator has reserved (its tensors and its free blocks),
+    less 5 % of the card (``_MARGIN_SHARE``); None where no plan binds: on
+    the CPU (host RAM) and under ``PANDELOS_IGNORE_HBM_MODEL=1``."""
+    if os.environ.get("PANDELOS_IGNORE_HBM_MODEL") == "1":
+        return None
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(dev)
+    return int(free + torch.cuda.memory_reserved(dev)
+               - _MARGIN_SHARE * total)
+
+
+def _allocated(device) -> int:
+    """Bytes the caching allocator holds for tensors on ``device`` (0 off
+    a card): a host-side counter, no synchronisation."""
+    dev = torch.device(device)
+    return int(torch.cuda.memory_allocated(dev)) if dev.type == "cuda" else 0
+
+
+def _gb(n: float) -> str:
+    return f"{n / 1e9:.2f}GB"
+
+
+class MemoryPlan:
+    """The device memory of one :func:`compute_network_device` run, stage
+    by stage, on the card of its first shard: ``budget``
+    (:func:`card_memory`; None where nothing binds), ``base`` (what the
+    card held when the engine began), ``fixed`` (what every stage after
+    the signatures holds: profiles, signatures, the join table) and
+    ``stages``, each stage's planned peak, ``base`` included;
+    ``planned_peak`` is the largest.
+
+    Gate 1 (:meth:`check`) checks the stages that the shapes alone
+    decide, which the constructor plans before anything reaches the card:
+    the signatures, the bound-bit matrix, the extraction at the largest
+    cap and the join table's build.  Gate 2 plans the candidate work from
+    the counts the extraction found, beside what the card holds: each
+    heavy-row chunk (:meth:`heavy`), then the main rows' flat pass and the
+    BBH (:meth:`bbh`).  Each gate raises ``MemoryError`` naming the stage
+    that cannot fit."""
+
+    def __init__(self, index: KmerIndex, config, device, n_devices: int,
+                 ring: bool, runner: Optional[Runner] = None):
+        from pandelos_tpu_torch.ops.lane_join import (
+            build_temp_bytes,
+            lane_depth,
+        )
+
+        self.budget = card_memory(device)
+        n_proc = _n_devices(config, n_devices)[1]
+        R, _, W, Gp, B, rows, rows_shard = _layout(index, config, n_devices)
+        self.W, self.G_pad, self.B = W, Gp, B
+        self.rows_shard = rows_shard
+        self.in_scan = resolve_backend(config.backend) == "xla"
+        self.ring = ring
+        self.t_mode = (not self.in_scan and not ring
+                       and t_mode_enabled(n_devices, n_proc, rows))
+        kernel = join_kernel_for(index, config)
+        if ring:
+            Gc = -(-Gp // n_devices)
+            sig = 3 * 2 * Gc * B + 2 * 2 * rows_shard * B
+        else:
+            sig = 2 * Gp * B
+        table = 0
+        if ring or not self.in_scan:
+            table = {"lane2": 4 * Gp * lane_depth(index) * 128,
+                     "lane": 8 * Gp * lane_depth(index) * 128,
+                     "roll": 8 * Gp * W}[kernel]
+        build = build_temp_bytes(Gp, W) if table and kernel != "roll" else 0
+        profiles = 8 * Gp * W + 4 * Gp
+        self.parts = {"profiles": profiles, "signatures": sig,
+                      "join table": table}
+        self.fixed = profiles + sig + table
+        # what a runner an earlier run built already holds on the card
+        # (its profiles, its signatures and join table where built):
+        # those stages do not run again
+        has_sig = runner is not None and runner.sig is not None
+        has_table = runner is not None and (
+            {"lane2": runner._all_lane2, "lane": runner._all_lane,
+             "roll": runner._all_pair}[kernel] is not None)
+        cached = 0 if runner is None else (
+            profiles + sig * has_sig + table * has_table)
+        self.base = max(0, _allocated(device) - cached)
+        self.stages = {}
+        self.heavy_chunks = 0
+        cap = max(config.candidate_cap, MAX_CANDIDATE_CAP)
+        if not has_sig:
+            self._stage("signatures", profiles + sig + min(4096, Gp) * (
+                B * _HIST_ELEM_BYTES + W * 16))
+        if self.t_mode:
+            self._stage("bound bits", profiles + sig + 4 * rows * B + max(
+                rows * rows + min(_T_ROWS, rows) * rows * _BITS_ELEM_BYTES,
+                2 * rows * rows))
+        self._stage("extract", self._extract_bytes(cap, cap // 2))
+        if not has_table:
+            self._stage("join table", self.fixed + build)
+
+    def _stage(self, name: str, nbytes: int) -> None:
+        self.stages[name] = max(self.stages.get(name, 0),
+                                self.base + int(nbytes))
+
+    @property
+    def planned_peak(self) -> int:
+        return max(self.stages.values())
+
+    def _cand_bytes(self, K: int) -> int:
+        """A shard's extraction outputs at cap ``K``: candidate ids, row
+        ids, counts."""
+        return self.rows_shard * (4 * K + 8)
+
+    def _step_bytes(self, n_rows: int, cols: int) -> int:
+        """An extraction step's temporaries over ``n_rows`` rows against
+        ``cols`` columns."""
+        step = max(1, _MASK_ELEMS // max(1, cols))
+        return min(n_rows, step) * cols * _STEP_ELEM_BYTES
+
+    def _extract_bytes(self, K: int, K_prev: int) -> int:
+        """The extraction at cap ``K`` (the last pass's outputs, at
+        ``K_prev``, still held): the bound's source (bound bits, or the
+        signatures' presence copy), a step's temporaries, the outputs, and
+        under ``"xla"`` the in-scan join's."""
+        Gp, rows = self.G_pad, self.rows_shard
+        if self.t_mode:
+            src, cols = rows * rows, rows
+        else:
+            src, cols = 2 * Gp * self.B, Gp
+        out = self._cand_bytes(K) + (self._cand_bytes(K_prev) if K_prev
+                                     else 0)
+        if self.in_scan:
+            out += join_slots_bytes(rows * K, self.W)
+        return (self.parts["profiles"] + self.parts["signatures"] + src
+                + self._step_bytes(rows, cols) + out)
+
+    def _refuse(self, stage: str) -> None:
+        """Raise ``MemoryError`` where ``stage`` cannot fit."""
+        nbytes = self.stages[stage]
+        if self.budget is None or nbytes <= self.budget:
+            return
+        parts = " + ".join(f"{k} {_gb(v)}"
+                           for k, v in self.parts.items() if v)
+        raise MemoryError(
+            f"the engine's {stage} stage needs ~{_gb(nbytes)} on a card "
+            f"with {_gb(self.budget)} to give ({parts} held, "
+            f"{_gb(self.base)} before the engine): shard the input by "
+            f"genome subsets or add devices (config.n_devices, "
+            f"config.ring_extract); PANDELOS_IGNORE_HBM_MODEL=1 overrides")
+
+    def check(self) -> None:
+        """Gate 1: raise ``MemoryError`` naming the first stage planned so
+        far that cannot fit."""
+        for stage in list(self.stages):
+            self._refuse(stage)
+
+    def extracted(self, K: int, K_prev: int) -> None:
+        """The extraction ran to cap ``K`` (its last pass's predecessor at
+        ``K_prev``, 0 for none): its stage at the caps it reached."""
+        self.stages["extract"] = self.base + self._extract_bytes(K, K_prev)
+        self.K = K
+
+    def heavy_work(self, n: int, K: int) -> int:
+        """What a heavy-row chunk of ``n`` rows at cap ``K`` adds to what
+        the card holds: its candidate lists, and the larger of its
+        extraction's temporaries (the heavy pass never reads bound bits:
+        the signatures' presence copy and a step's) and its flat pair
+        list's (at most a pair a slot; the in-scan join's under
+        ``"xla"``)."""
+        slots = n * K
+        extract = 2 * self.G_pad * self.B + self._step_bytes(n, self.G_pad)
+        if self.in_scan:
+            return 4 * slots + extract + join_slots_bytes(slots, self.W)
+        flat = _PAIR_LIVE_BYTES * _next_pow2(max(slots, _PAIR_BLOCK))
+        return 4 * slots + max(extract, flat)
+
+    def heavy(self, n: int, K: int, kept: int) -> None:
+        """Gate 2, before each heavy-row chunk: ``n`` rows at cap ``K``
+        beside the main extraction's outputs and ``kept``, the valid
+        cells of the chunks before it."""
+        held = self.base + self.fixed + self._cand_bytes(self.K) + kept
+        self.heavy_chunks += 1
+        self._stage("heavy", held + self.heavy_work(n, K))
+        self._refuse("heavy")
+
+    def bbh(self, pairs: int, slots: int, heavy_slots: int,
+            edge_cap: int) -> None:
+        """Gate 2, before the main rows' flat pass: a shard's ``pairs``
+        (the most of any shard) over its ``slots`` [rows, K] slots,
+        flattened, joined and handed to the BBH, beside the heavy rows'
+        segment (``heavy_slots``) and the emission's ``edge_cap`` slots;
+        under ``"xla"`` and on the ring the [rows, K] join outputs are
+        the BBH's input."""
+        held = (self.base + self.fixed + self._cand_bytes(self.K)
+                + (_HEAVY_SEG_SLOT_BYTES + _SEG_SLOT_BYTES) * heavy_slots
+                + _EMIT_SLOT_BYTES * edge_cap)
+        if self.in_scan or self.ring:
+            work = ((_JOIN_SLOT_BYTES + _BBH_SLOT_BYTES) * slots
+                    + _BBH_LIVE_SLOT_BYTES * heavy_slots)
+        else:
+            pair_cap = _next_pow2(max(pairs, _PAIR_BLOCK))
+            work = (_PAIR_HELD_BYTES * pair_cap + _SEG_SLOT_BYTES * slots
+                    + max(_PAIR_LIVE_BYTES * pair_cap
+                          + _HANDOVER_SLOT_BYTES * slots,
+                          _BBH_LIVE_SLOT_BYTES * max(slots, heavy_slots)))
+        self._stage("bbh", held + work)
+        self._refuse("bbh")
+
+    def counters(self) -> dict:
+        """The ``plan`` span's counters."""
+        return {"budget_bytes": self.budget or 0, "fixed_bytes": self.fixed,
+                "planned_peak_bytes": self.planned_peak,
+                "heavy_chunks": self.heavy_chunks}
+
+
+# check_hbm_fit's hint where no other engine fits
+_CELLS_HINT = ("shard the input by genome subsets, add devices, or take "
+               "the device BBH (config.device_bbh, the default), whose "
+               "memory plan counts the candidate work its extraction finds "
+               "instead of every row at the cap")
 
 
 def _host_fallback_rows(index: KmerIndex, rows) -> ScoreCells:

@@ -50,15 +50,19 @@ from pandelos_tpu_torch.index import KmerIndex
 from pandelos_tpu_torch.io.net import EdgeList
 from pandelos_tpu_torch.ops.candidate import (
     MAX_CANDIDATE_CAP,
+    MemoryPlan,
     _next_pow2,
     build_signatures,
-    check_hbm_fit,
+    cached_runner,
     get_runner,
-    hbm_model,
     rows_layout,
 )
 from pandelos_tpu_torch.ops.exact_div import exact_div_f32
 from pandelos_tpu_torch.ops.score import _round_up, pad_profiles
+
+# the most joined pairs whose lists a run keeps for its caller
+# (``capture``): 20 bytes a pair on the card
+CAPTURE_PAIRS = 1 << 28
 
 
 def _no_stats() -> bool:
@@ -424,22 +428,24 @@ def _bbh_flat_program(grow, cand, counts, pi, pj, fi, fp, ft, fv,
 
 
 def _heavy_pass(index, runner, shards, over_rows, over_counts,
-                budget: int, row_block: int, steps: int, use_kernel: bool,
-                extract, sp, keep_joined: bool):
+                plan: MemoryPlan, slots: int, row_block: int, steps: int,
+                use_kernel: bool, extract, sp, keep_joined: bool):
     """The heavy-row pass (span ``extract.heavy``, ``sp``): the rows whose
     candidates passed the main extraction's cap (``over_rows``, with each
     overflowing (row, ring step)'s count in ``over_counts``), most
     candidates first, extracted again on the card by ``extract`` (the
     main pass's) in chunks, each at its first row's count rounded up to
-    128 and of at most ``budget`` slots (the main extraction's); each
-    chunk's pairs are joined (the join kernel under ``"cuda"``, else the
-    in-scan join) and only its valid cells kept.
+    128 and of at most ``slots`` slots (the main extraction's), each
+    planned before it runs (:meth:`MemoryPlan.heavy`, which raises
+    ``MemoryError`` where the card cannot hold it); each chunk's pairs
+    are joined (the join kernel under ``"cuda"``, else the in-scan join)
+    and only its valid cells kept.
 
     Returns the heavy rows, each global shard's heavy rows [n, H] (the
     segment's ``all_gather`` layout), each local shard's segment of their
     valid cells (:func:`_heavy_segment`), the pairs joined, and with
     ``keep_joined`` shard 0's joined pair lists (pi, pj, inter, perc, tr)
-    under ``"cuda"``."""
+    under ``"cuda"``, or None past ``CAPTURE_PAIRS`` pairs."""
     G = index.n_sequences
     heavy = np.unique(over_rows)
     most = np.zeros(len(heavy), np.int64)  # over the ring steps
@@ -447,11 +453,13 @@ def _heavy_pass(index, runner, shards, over_rows, over_counts,
     order = np.argsort(-most, kind="stable")
     sp.set("rows", len(heavy))
     sp.set("K", _round_up(int(most.max()), 128))  # the first chunk's
-    layouts, cells, joined0 = [], [[] for _ in shards.devices], []
-    pairs, start = 0, 0
+    layouts, cells = [], [[] for _ in shards.devices]
+    joined0 = [] if keep_joined else None
+    pairs, start, kept = 0, 0, 0
     while start < len(order):
         K = _round_up(int(most[order[start]]), 128)
-        n = max(row_block, budget // K // row_block * row_block)
+        n = max(row_block, slots // K // row_block * row_block)
+        plan.heavy(n, K, kept)
         rows = heavy[order[start:start + n]]
         start += n
         sp.add("chunks", 1)
@@ -462,8 +470,11 @@ def _heavy_pass(index, runner, shards, over_rows, over_counts,
         pairs += int(counts.sum(dtype=np.int64))
         for mine, found in zip(cells, _chunk_cells(
                 runner, shards, outs, counts, K, steps, use_kernel,
-                joined0 if keep_joined else None)):
+                joined0)):
             mine.append(found)
+            kept += sum(x.numel() * x.element_size() for x in found)
+        if joined0 is not None and pairs > CAPTURE_PAIRS:
+            joined0 = None  # too many to keep for the caller
     sp.set("pairs", pairs)
     layout = np.concatenate(layouts, axis=1)
     segs = _heavy_segment(cells, layout, shards, runner.G_pad, G)
@@ -565,8 +576,17 @@ def compute_network_device(
     ``config.n_devices`` shards (``devices``: explicit placement, see
     :func:`~pandelos_tpu_torch.parallel.shards.resolve_shards`).
     Returns (edges, stats) with edges as canonical (a, b, host-exact f32
-    score), or None when the card cannot hold the heavy-row pass
-    (:func:`hbm_model`): the host cells path then.
+    score).
+
+    Device memory is held to a stage-wise plan
+    (:class:`~pandelos_tpu_torch.ops.candidate.MemoryPlan`) with two
+    gates, each raising ``MemoryError`` naming the stage that cannot fit.
+    Gate 1, before anything reaches the card, checks the stages that the
+    shapes alone decide: signatures, profiles, the bound-bit matrix, the
+    extraction's workspace and the join table.  Gate 2 plans the
+    candidate work from the counts the extraction found: each heavy-row
+    chunk before it runs, then (span ``plan``) the main rows' flat pass
+    and the BBH beside the heavy rows' segment.
 
     Extraction runs with ``upper_only=False`` (each cell on both its
     rows) so the per-row maxima are complete; on candidate-cap overflow
@@ -598,7 +618,7 @@ def compute_network_device(
     The engine's sub-phases are spans of :mod:`pandelos_tpu_torch.tracing`
     under the caller's (``setup.pad_profiles``, ``setup.runner``,
     ``setup.signatures``, ``extract``, ``extract.heavy`` where a row
-    passed the cap, ``flatten_join`` under ``"cuda"``, ``bbh``,
+    passed the cap, ``plan``, ``flatten_join`` under ``"cuda"``, ``bbh``,
     ``fetch``, ``host.edges``, ``host.stats``); none
     synchronises the card.  ``stats["phase_s"]`` holds their seconds and
     ``wait``, the seconds the host spent blocked on the card within
@@ -627,10 +647,14 @@ def compute_network_device(
         return sp
 
     with phase("setup.pad_profiles"):
-        check_hbm_fit(index, config, dev, ring=use_ring, n_devices=shards.n)
         row_block = min(config.row_block, _round_up(G, 8))
         col_block = min(config.col_block, _round_up(G, 128))
         padded = pad_profiles(index, row_block, col_block)
+        # gate 1: the stages the shapes alone decide, before anything
+        # reaches the card
+        plan = MemoryPlan(index, config, dev, shards.n, use_ring,
+                          cached_runner(index, padded, config, shards))
+        plan.check()
     G_pad = padded.ids.shape[0]
     if use_ring and G_pad % shards.n:
         raise ValueError(
@@ -684,6 +708,7 @@ def compute_network_device(
             )
             return outs, shards.fetch([o[-1] for o in outs])
 
+        K_prev = 0
         while True:
             sp.add("passes", 1)  # each pass past the first grew K
             sp.set("K", K)
@@ -695,7 +720,8 @@ def compute_network_device(
             fit = counts_h[over & (counts_h <= MAX_CANDIDATE_CAP)]
             if not fit.size:
                 break
-            K = _next_pow2(int(fit.max()))
+            K_prev, K = K, _next_pow2(int(fit.max()))
+        plan.extracted(K, K_prev)
         # no pass below reads the bound bits: their bytes go to the BBH
         runner.release_bound_bits()
     if capture is not None:
@@ -711,15 +737,9 @@ def compute_network_device(
         with phase("extract.heavy") as sp:
             heavy_rows, heavy_layout, heavy_segs, heavy_pairs, joined0 = (
                 _heavy_pass(index, runner, shards, grow_v[over],
-                            counts_h[over], grow_h.size // shards.n * K,
+                            counts_h[over], plan, grow_h.size // shards.n * K,
                             row_block, steps, use_kernel, extract, sp,
                             keep_joined=capture is not None))
-            mm = hbm_model(index, config, dev, ring=use_ring,
-                           n_devices=shards.n,
-                           heavy_slots=heavy_segs[0][1].numel())
-            if mm is not None and not mm["fits"]:
-                sp.set("fallback", 1)
-                return None  # the host cells path
             outs = _drop_heavy(outs, shards, heavy_rows, G_pad, K,
                                use_kernel)
     main_counts = np.where(np.isin(grow_v, heavy_rows) | (grow_v >= G), 0,
@@ -730,6 +750,24 @@ def compute_network_device(
     # every shard's flat pair total: rows are sharded on the S*n axis
     per_shard = main_counts.reshape(steps, shards.n, -1).sum(
         axis=(0, 2), dtype=np.int64)
+    # every emitted cell is valid and valid pairs pass the bound in both
+    # orientations, so emitted cells <= half the candidate slots (on one
+    # shard; a shard's mirror slots can sit elsewhere, and the cap grows
+    # past the largest shard's count)
+    edge_cap = max(
+        1 << 14, _next_pow2(int(per_shard.max(initial=0)) // 2 + 1)
+    )
+    # test hook: a small initial cap makes the doubling step run
+    cap_env = os.environ.get("PANDELOS_EDGE_CAP_INIT")
+    if cap_env:
+        edge_cap = _next_pow2(int(cap_env))
+    with phase("plan") as sp:
+        # gate 2: the main rows' flat pass and the BBH, beside the heavy
+        # rows' segment
+        plan.bbh(int(per_shard.max(initial=0)), grow_h.size // shards.n * K,
+                 heavy_segs[0][1].numel() if heavy_segs else 0, edge_cap)
+        for name, value in plan.counters().items():
+            sp.set(name, value)
     pair_cap = None
     if use_kernel:
         with phase("flatten_join") as sp:
@@ -739,16 +777,16 @@ def compute_network_device(
             sp.set("launches", shards.n_local)  # a join kernel a shard
             flat = runner.flatten_join_shards(outs, K, pair_cap)
         if capture is not None:
+            capture.update(join_kernel=runner.join_kernel,
+                           table=runner.join_table, dg=runner.dg)
+        if capture is not None and joined0 is not None:
             fpi, fpj, fi, fp, ft = flat[0][:5]
             if joined0:
                 # every pair shard 0's join launches joined, the heavy
                 # chunks' after the main list's
                 fpi, fpj, fi, fp, ft = (
                     torch.cat(x) for x in zip(flat[0][:5], *joined0))
-            capture.update(
-                join_kernel=runner.join_kernel, table=runner.join_table,
-                dg=runner.dg, pi=fpi, pj=fpj, inter=fi, perc=fp, tr=ft,
-            )
+            capture.update(pi=fpi, pj=fpj, inter=fi, perc=fp, tr=ft)
     if capture is not None:
         capture["pairs_per_shard"] = per_shard
 
@@ -770,18 +808,6 @@ def compute_network_device(
         genome_pad = np.zeros(G_pad, dtype=np.int32)
         genome_pad[:G] = index.seq_genome
         n_gen = index.n_genomes
-
-        # every emitted cell is valid and valid pairs pass the bound in
-        # both orientations, so emitted cells <= half the candidate slots
-        # (on one shard; a shard's mirror slots can sit elsewhere, and the
-        # cap grows past the largest shard's count)
-        edge_cap = max(
-            1 << 14, _next_pow2(int(per_shard.max(initial=0)) // 2 + 1)
-        )
-        # test hook: a small initial cap makes the doubling step run
-        cap_env = os.environ.get("PANDELOS_EDGE_CAP_INIT")
-        if cap_env:
-            edge_cap = _next_pow2(int(cap_env))
         edge_cap_initial = edge_cap
         tails = zip(shards.replicate(inv_perm), shards.replicate(lens_pad),
                     shards.replicate(genome_pad))
@@ -908,6 +934,10 @@ def compute_network_device(
                 if use_kernel and runner.join_kernel == "lane2" else None
             ),
             "edge_cap": int(edge_cap),
+            # the memory plan's peak, and the card's bytes it held to
+            # (None where no card budget binds)
+            "planned_peak_bytes": int(plan.planned_peak),
+            "budget_bytes": plan.budget,
         }
         if shards.n > 1 or shards.group is not None:
             stats["pairs_per_shard"] = per_shard.tolist()

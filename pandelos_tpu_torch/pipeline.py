@@ -107,25 +107,22 @@ def _score_and_network(ds, index, k, config, capture, devices):
                 inter_max_score=np.zeros((0, 0), np.float32),
                 stats=rstats,
             )
-    with tracing.span("score") as sp:
+    with tracing.span("score"):
         if backend in ("cuda", "xla") and config.device_bbh is not False:
             from pandelos_tpu_torch.ops.net_device import (
                 compute_network_device,
             )
 
-            out = compute_network_device(index, config, capture=capture,
-                                         devices=devices)
-            if out is not None:
-                edges, dstats = out
-                return NetworkResult(
-                    edges=edges,
-                    n_inter_edges=dstats.get("n_inter_edges", len(edges)),
-                    n_intra_edges=dstats.get("n_intra_edges", 0),
-                    genome_max=np.zeros((0, 0), np.float32),
-                    inter_max_score=np.zeros((0, 0), np.float32),
-                    stats=dstats,
-                )
-            sp.set("engine.fallback", 1)  # the host cells path takes over
+            edges, dstats = compute_network_device(
+                index, config, capture=capture, devices=devices)
+            return NetworkResult(
+                edges=edges,
+                n_inter_edges=dstats.get("n_inter_edges", len(edges)),
+                n_intra_edges=dstats.get("n_intra_edges", 0),
+                genome_max=np.zeros((0, 0), np.float32),
+                inter_max_score=np.zeros((0, 0), np.float32),
+                stats=dstats,
+            )
         cells = compute_cells(index, config, capture=capture,
                               devices=devices)
     with tracing.span("network"):

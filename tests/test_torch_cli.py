@@ -25,19 +25,21 @@ TOY = os.path.join(HERE, "data", "toy.faa")
 BLOCKS = ["--row-block", "16", "--col-block", "128"]
 TIMING = {"phase_times", "phase_s", "elapsed_s", "real_s", "user_s",
           "system_s", "memory_mb", "exdate"}
-# the port's device-BBH stats also name the torch device, the join kernel
-# and whether the bound-bit matrix ran; the JAX package's have none of them
-PORT_ONLY_NETWORK = {"device", "join_kernel", "bound_bits_mode"}
+# the port's device-BBH stats also name the torch device, the join kernel,
+# whether the bound-bit matrix ran, and the memory plan's peak and the
+# card's bytes it held to; the JAX package's have none of them
+PORT_ONLY_NETWORK = {"device", "join_kernel", "bound_bits_mode",
+                     "planned_peak_bytes", "budget_bytes"}
 # the port's job spans: the timing keys they add (phase_times: the spans
 # past the JAX package's six phases and the dotted children; phase_s: the
-# engine's last sub-phase and its wait on the card) and .stats.json's
-# "trace" block; the JAX package has none of them
+# engine's last sub-phase, its wait on the card and its memory plan) and
+# .stats.json's "trace" block; the JAX package has none of them
 PORT_ONLY_TIMING = {
     "phase_times": {"net_write", "clus_write", "report", "stats",
                     "index.encode", "index.device", "cluster.components",
                     "cluster.split", "cluster.assemble", "score.dense_pass",
                     "score.host_corrections"},
-    "phase_s": {"host.stats", "wait"},
+    "phase_s": {"host.stats", "wait", "plan"},
     "stats.json": {"trace"},
 }
 

@@ -1,7 +1,7 @@
 """The device engine's heavy-row pass on the CPU: rows whose candidates
 pass ``MAX_CANDIDATE_CAP`` are extracted again on the device, in chunks
 each at its own cap, and only their valid cells kept, so the job stays
-on the device path (no ``engine.fallback``; an ``extract.heavy`` span).
+on the device path (an ``extract.heavy`` span).
 Its ``.net`` and ``.clus`` are byte-identical to the plain reference's
 (``benchmark/reference/job.py``: NumPy and PyTorch, none of either
 package) and to the JAX package's cells path (``device_bbh=False``, the
@@ -34,7 +34,7 @@ CAP = 8  # MAX_CANDIDATE_CAP: the ladder runs 2 -> 8; rows of 9-12 pass it
 HEAVY = 58  # rows past CAP
 RETRY = 10  # MAX_RETRY_CAP where rows pass it too (those of 11-12)
 ENGINE = ["setup.pad_profiles", "setup.runner", "setup.signatures",
-          "extract", "flatten_join", "bbh", "fetch", "host.edges",
+          "extract", "plan", "flatten_join", "bbh", "fetch", "host.edges",
           "host.stats"]
 
 
@@ -103,7 +103,6 @@ def test_heavy_rows_stay_on_the_device_path(name, expected, monkeypatch,
 
     net = res.stats["network"]
     by = {s["name"]: s for s in res.spans}
-    assert "engine.fallback" not in by["score"]["counters"]
     assert "network" not in by and net["device_bbh"]
     assert not walked  # every row on the device, past the retry cap too
     # every candidate of every row joined once, the heavy rows' included
@@ -122,7 +121,6 @@ def test_heavy_rows_stay_on_the_device_path(name, expected, monkeypatch,
     assert by["extract"]["counters"]["K"] == CAP
     heavy = by["extract.heavy"]["counters"]
     rows = heavy["rows"]
-    assert "fallback" not in heavy
     if opts.get("ring_extract"):
         # a row passes the cap where one ring step's candidates do
         assert 0 < rows < HEAVY
@@ -167,8 +165,12 @@ def test_memory_model_counts_the_heavy_segment(expected, monkeypatch):
 
     seen = []
     monkeypatch.setattr(net_device, "MAX_CANDIDATE_CAP", CAP)
-    monkeypatch.setattr(net_device, "hbm_model",
-                        lambda *a, **kw: seen.append(kw) or None)
+    plan_bbh = candidate.MemoryPlan.bbh
+    monkeypatch.setattr(
+        candidate.MemoryPlan, "bbh",
+        lambda self, pairs, slots, heavy_slots, edge_cap: seen.append(
+            heavy_slots) or plan_bbh(self, pairs, slots, heavy_slots,
+                                     edge_cap))
     segs = []
     real = net_device._heavy_segment
     monkeypatch.setattr(net_device, "_heavy_segment",
@@ -183,7 +185,7 @@ def test_memory_model_counts_the_heavy_segment(expected, monkeypatch):
     per_row = np.bincount(cells.row, minlength=idx.n_sequences)
     # four chunks of one 16-row block each
     assert tuple(cand.shape) == (4 * 16, per_row[heavy].max())
-    assert [kw["heavy_slots"] for kw in seen] == [cand.numel()]
+    assert seen == [cand.numel()]
 
     # what the flat BBH allocates for the segment, every temporary
     # summed, over the same run's main lists without it

@@ -222,8 +222,8 @@ def test_engine_never_synchronises_the_card(card, monkeypatch, backend):
     _, stats = compute_network_device(index, config)
     assert calls == []
     names = ["setup.pad_profiles", "setup.runner", "setup.signatures",
-             "extract", "flatten_join", "bbh", "fetch", "host.edges",
-             "host.stats"]
+             "extract", "plan", "flatten_join", "bbh", "fetch",
+             "host.edges", "host.stats"]
     if backend == "xla":
         names.remove("flatten_join")
     assert list(stats["phase_s"]) == names + ["wait"]

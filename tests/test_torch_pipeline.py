@@ -341,10 +341,11 @@ def test_unpackable_counts_raise(tmp_path, device_bbh):
 
 def test_candidate_cap_past_the_device_limit_raises(monkeypatch, tmp_path):
     """Past the largest device candidate cap the heavy-row pass keeps the
-    network on the device; where the card cannot hold that pass, it
-    comes from the cells path (compute_cells_candidate, host BBH), whose
-    cells equal the oracle's valid cells.  The output stays the golden
-    either way."""
+    network on the device, and the output is the golden; where the card
+    cannot hold a chunk of that pass, the memory plan raises naming its
+    heavy stage.  The cells path (compute_cells_candidate, host BBH,
+    ``device_bbh=False``) gives the golden too, its cells the oracle's
+    valid cells."""
     from pandelos_tpu_torch.oracle.cells import (
         apply_validity,
         compute_cells_oracle,
@@ -368,11 +369,18 @@ def test_candidate_cap_past_the_device_limit_raises(monkeypatch, tmp_path):
         assert filecmp.cmp(prefix + suffix,
                            os.path.join(GOLDEN, "synth_small" + suffix),
                            shallow=False), suffix
-    monkeypatch.setattr(net_device, "hbm_model",
-                        lambda *a, **kw: {"fits": False})
+    monkeypatch.setattr(candidate, "card_memory", lambda device: 10**12)
+    monkeypatch.setattr(candidate.MemoryPlan, "heavy_work",
+                        lambda self, n, K: 10**13)
+    with pytest.raises(MemoryError, match="the engine's heavy stage needs "
+                                          "~10000.*GB on a card with "
+                                          "1000.00GB to give"):
+        run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
+                     _cfg(candidate_cap=2))
+    assert not seen
     cap = {}
     run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
-                 _cfg(candidate_cap=2), capture=cap)
+                 _cfg(candidate_cap=2, device_bbh=False), capture=cap)
     assert len(seen) == 1
     for suffix in (".net", ".clus"):
         assert filecmp.cmp(prefix + suffix,

@@ -3,7 +3,7 @@ the top-level spans tile ``run_pipeline`` and every child lies inside
 its parent, ``phase_times`` and the engine's ``phase_s`` come from the
 spans, ``.stats.json`` holds them; waits on the device count on every
 span around them and worker threads hand theirs to the span that owns
-them; the clustering pool and the engine's fallback are counted; and no
+them; the clustering pool and the memory plan are counted; and no
 ``torch.profiler`` range is opened without ``profile_dir``."""
 
 import json
@@ -24,7 +24,7 @@ SMALL = os.path.join(GOLDEN, "synth_small.faa")
 REAL = os.path.join(GOLDEN, "synth_real.faa")
 SIX = {"ingest", "k_select", "index", "score", "network", "cluster"}
 ENGINE = ["setup.pad_profiles", "setup.runner", "setup.signatures",
-          "extract", "flatten_join", "bbh", "fetch", "host.edges",
+          "extract", "plan", "flatten_join", "bbh", "fetch", "host.edges",
           "host.stats"]
 TAIL = ["net_write", "cluster", "clus_write", "stats"]
 HEAD = ["ingest", "k_select", "index", "score"]
@@ -112,6 +112,8 @@ def test_engine_counters_and_waits():
     assert by["extract"]["counters"]["K"] == net["candidate_cap_final"]
     assert by["flatten_join"]["counters"]["pair_cap"] == net["pair_cap"]
     assert by["flatten_join"]["counters"]["launches"] == 1
+    assert by["plan"]["counters"]["planned_peak_bytes"] == \
+        net["planned_peak_bytes"]
     assert by["bbh"]["counters"]["edge_cap"] == net["edge_cap"]
     assert by["bbh"]["counters"]["edge_cap_initial"] == \
         net["edge_cap_initial"]
@@ -147,26 +149,6 @@ def test_clustering_pool_is_counted():
     assert split["threads"] >= 1
     assert 0 < split["split_thread_s"]
     assert res.phase_times["cluster.split"] <= res.phase_times["cluster"]
-
-
-def test_engine_fallback_is_counted(monkeypatch, tmp_path):
-    """Where the card cannot hold the heavy-row pass (rows past the
-    largest device cap) the engine hands the job to the host cells path:
-    the score span says so, the extract.heavy span holds the rows that
-    needed the pass and its fallback, and the network span follows."""
-    from pandelos_tpu_torch.ops import net_device
-
-    monkeypatch.setattr(net_device, "MAX_CANDIDATE_CAP", 2)
-    monkeypatch.setattr(net_device, "hbm_model",
-                        lambda *a, **kw: {"fits": False})
-    res = run_pipeline(SMALL, None, _cfg(candidate_cap=2))
-    by = {s["name"]: s for s in res.spans}
-    assert by["score"]["counters"]["engine.fallback"] == 1
-    heavy = by["extract.heavy"]["counters"]
-    assert heavy["fallback"] == 1 and heavy["rows"] > 0
-    assert by["extract"]["counters"]["K"] == 2
-    assert [s["name"] for s in res.spans if s["parent"] is None][:5] == [
-        "ingest", "k_select", "index", "score", "network"]
 
 
 def test_a_span_outside_a_job_is_timed_and_kept_nowhere():
