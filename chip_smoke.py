@@ -46,6 +46,12 @@ launches its case implies; the lane2 kernel of cases b and c is held bit
 for bit against its plain version on the first shard's pair list, and
 the candidate engine's cases allocate no more than their shards times
 the memory model's bytes.
+In every run whose launches it counts, the flat pair fill kernel
+(``csrc/flat_pairs.cu``) must have launched once for each join kernel
+launch, as the spans' ``fill_launches`` counters say; phase 25 holds it
+bit for bit against its plain twin and the ``torch.cummax`` form it
+replaced (edge and tile cases, two heavy chunks at the benchmark cells'
+shapes, the main path's list of phase 6) and times it.
 Every output must be byte-identical to its committed golden (the derived
 input's two runs to each other; the examples' generated ``.faa`` too).
 Phases print one line each; a ``kernels`` JSON line comes before the
@@ -55,10 +61,11 @@ directory without the package.
 
     python3 chip_smoke.py --kernels-only
 
-stops after the kernel checks (build, random and adversarial tables, and
+stops after the kernel checks (build, random and adversarial tables,
 phase 24: the k-mer index build at the benchmark cells' shapes, against
-the NumPy build and its plain version, timed) and prints no result line:
-the short first call after a kernel changed.
+the NumPy build and its plain version, timed, and phase 25's fill cases
+and heavy chunks) and prints no result line: the short first call after
+a kernel changed.
 
 The multi-device paths elsewhere: on the CPU, ``python -m
 pandelos_tpu_torch.cli run in.faa out --device cpu --devices 4 [--ring]``
@@ -433,8 +440,12 @@ def launches():
 
 
 def zero_launches():
+    """The join kernels' launch counters and the fill kernel's, to 0."""
+    from pandelos_tpu_torch.ops.flat_pairs import flat_pairs
+
     for k in JOINS:
         join_fns(k)[0].launches = 0
+    flat_pairs.launches = 0
 
 
 def check_join(kind, name, args, plain_chunk):
@@ -604,6 +615,7 @@ def sharded_phases(dev, outdir):
         res, wall, _ = run(MAIN, outdir, capture=cap, tag=tag,
                            devices=[dev] * N_SHARDS, **cfg)
         n = launches()
+        fills = check_fills(f"phase {ph}", res, n)
         peak = torch.cuda.max_memory_allocated(dev) - held
         got = check_targets(MAIN, res)
         net = res.stats["network"]
@@ -627,8 +639,8 @@ def sharded_phases(dev, outdir):
                 f"phase {ph}: {peak} bytes allocated past {N_SHARDS} x the "
                 f"memory model's {mm['total_bytes']}")
         log(ph, f"{MAIN} {cfg} on {N_SHARDS} shards of {dev}: .net/.clus "
-            f"byte-identical to golden; {got}; launches {n}; wall "
-            f"{wall:.2f}s")
+            f"byte-identical to golden; {got}; launches {n}, flat_pairs "
+            f"{fills}; wall {wall:.2f}s")
         log(ph, "phase_times " + json.dumps(
             {k: round(v, 4) for k, v in res.phase_times.items()}))
         if "phase_s" in net:
@@ -705,6 +717,7 @@ def combination_phase(dev, outdir):
         res, wall, _ = run(name, outdir, capture=cap, tag=f"_combo{i}",
                            devices=devices, **cfg)
         n = launches()
+        fills = check_fills(f"phase 23 {label}", res, n)
         peak = torch.cuda.max_memory_allocated(dev) - held
         full = {k: want.get(k, 0) for k in JOINS}
         if n != full:
@@ -719,7 +732,8 @@ def combination_phase(dev, outdir):
             raise AssertionError(f"phase 23 {label}: {len(pairs)} shards "
                                  f"ran")
         log(23, f"{name} {label} ({cfg}): .net/.clus byte-identical to "
-            f"phase 7's; launches {n}; ring_extract {net.get('ring_extract')}"
+            f"phase 7's; launches {n}, flat_pairs {fills}; ring_extract "
+            f"{net.get('ring_extract')}"
             f", n_devices {net.get('n_devices')}; wall {wall:.2f}s; "
             f"phase_times " + json.dumps(
                 {k: round(v, 4) for k, v in res.phase_times.items()}))
@@ -908,6 +922,251 @@ def index_phase(dev):
     return rows
 
 
+# phase 25: the flat pair list's fill (csrc/flat_pairs.cu)
+FILL_G = 1000  # the empty gene of the fill cases: padding slots hold it
+# a heavy chunk as the first chunk of a job (the largest pair_cap) holds
+# it in the benchmark's cells: rows, cap K, pairs, pair_cap (the fill's
+# inputs that one job of each cell gave on the card)
+FILL_CHUNKS = {
+    "xanthomonas14_annotated heavy chunk": (2560, 23168, 31_564_275,
+                                            1 << 25),
+    "escherichia30 heavy chunk": (256, 141_312, 36_167_168, 1 << 26),
+}
+
+
+def cummax_pairs(grow, cand, counts, pair_cap, G):
+    """(pi, pj) of ``Runner.flatten_join``'s fill as it was written before
+    the fill kernel, the oracle of the kernel and of its plain twin:
+    every row with candidates marks its id at its exclusive base, a
+    running maximum (``torch.cummax``) spreads it over the row's slots."""
+    import torch
+
+    dev = grow.device
+    K = cand.shape[-1]
+    gf = grow.reshape(-1)
+    cf = cand.reshape(-1, K)
+    nf = counts.reshape(-1)
+    nf = torch.where(nf > K, torch.zeros_like(nf), nf)
+    cs = torch.cumsum(nf, 0, dtype=torch.int64)
+    total = cs[-1]
+    p = torch.arange(pair_cap, dtype=torch.int64, device=dev)
+    b = cs - nf
+    row_ids = torch.arange(gf.shape[0], dtype=torch.int64, device=dev)
+    sel = (nf > 0) & (b < pair_cap)
+    marks = torch.zeros(pair_cap, dtype=torch.int64, device=dev)
+    marks.scatter_reduce_(0, b[sel], row_ids[sel], "amax")
+    r = torch.cummax(marks, 0).values
+    r_safe = torch.clamp(r, max=gf.shape[0] - 1)
+    base = torch.where(r_safe > 0, cs[torch.clamp(r_safe - 1, min=0)],
+                       torch.zeros_like(r_safe))
+    s = torch.clamp(p - base, 0, K - 1)
+    ok = p < total
+    pad = torch.full((pair_cap,), G, dtype=torch.int32, device=dev)
+    return (torch.where(ok, gf[r_safe].to(torch.int32), pad),
+            torch.where(ok, cf[r_safe, s].to(torch.int32), pad))
+
+
+def fill_extraction(lead, R, K, counts, seed=0):
+    """(grow, cand, counts) on the CPU, of shape lead + [R] (+ [K]):
+    distinct row genes below FILL_G where they fit, random candidates,
+    the given counts."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(lead, dtype=np.int64)) * R
+    grow = (rng.permutation(FILL_G)[:n] if n <= FILL_G
+            else rng.integers(0, FILL_G, n))
+    cand = rng.integers(0, FILL_G, (n, K))
+    counts = np.broadcast_to(np.asarray(counts, np.int64), (n,))
+    return (torch.from_numpy(grow.astype(np.int32)).reshape(*lead, R),
+            torch.from_numpy(cand.astype(np.int32)).reshape(*lead, R, K),
+            torch.from_numpy(counts.astype(np.int32)).reshape(*lead, R))
+
+
+def _fill_random(lead, R, K, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    # a fifth of the rows empty, a tenth past the cap
+    counts = rng.integers(1, K + 1, int(np.prod(lead)) * R)
+    counts[rng.random(counts.size) < 0.2] = 0
+    counts[rng.random(counts.size) < 0.1] = K + 1 + rng.integers(0, 5)
+    return fill_extraction(lead, R, K, counts, seed)
+
+
+# the fill's edge cases, small enough for the CPU: name -> a function
+# that makes (grow, cand, counts)
+FILL_CASES = {
+    # leading block x ring-step axes, as the ring's extraction gives them
+    "blocks": lambda: _fill_random((6,), 16, 8, 1),
+    "blocks_x_steps": lambda: _fill_random((4, 3), 16, 8, 2),
+    "wide_rows": lambda: _fill_random((2,), 8, 300, 3),
+    "no_pairs": lambda: fill_extraction((3,), 8, 4, 0),
+    "every_row_past_the_cap": lambda: fill_extraction((2,), 8, 4, 5),
+    "every_row_exactly_K": lambda: fill_extraction((2,), 8, 4, 4),
+    "one_row": lambda: fill_extraction((1,), 1, 128, 77),
+    "one_row_wider_than_many_tiles": lambda: fill_extraction(
+        (1,), 1, 9000, 9000),
+    "leading_and_trailing_empty_rows": lambda: fill_extraction(
+        (1,), 9, 5, [0, 0, 0, 3, 0, 5, 0, 0, 0]),
+    "empty_runs_between_rows": lambda: fill_extraction(
+        (1,), 6000, 3, [3 if i % 1500 == 7 else 0 for i in range(6000)]),
+}
+
+
+def fill_tile_cases():
+    """Extractions whose rows meet the kernel's 2048-slot tiles in every
+    way, for the card: rows that straddle a tile boundary, a row wider
+    than several tiles, more rows in a tile than it stages, many short
+    rows under leading axes."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return {
+        # no row ends on a tile edge
+        "rows_straddle_tiles": lambda: fill_extraction(
+            (4,), 16, 1100, rng.integers(1000, 1100, 64)),
+        "row_wider_than_tiles": lambda: fill_extraction(
+            (1,), 3, 9000, [100, 9000, 2500]),
+        # more owners in a tile than it stages: runs of empty rows
+        "more_rows_than_staged": lambda: fill_extraction(
+            (1,), 40000, 2048,
+            np.where(np.arange(40000) % 9000 == 5, 2047, 0)),
+        "many_short_rows": lambda: fill_extraction(
+            (2, 3), 1000, 4, rng.integers(0, 3, 6000)),
+    }
+
+
+FILL_SLACKS = ("exact", "padded", "cut")
+
+
+def fill_pair_cap(grow, cand, counts, slack):
+    """The pair_cap of a fill case: its pairs ``exact``ly, ``padded`` to
+    a power of two and a tile more, or ``cut`` to half of them."""
+    import torch
+
+    nf = counts.reshape(-1).long()
+    total = int(torch.where(nf > cand.shape[-1], 0, nf).sum())
+    return {"exact": max(1, total),
+            "padded": (1 << max(7, (total - 1).bit_length())) + 2048,
+            "cut": max(1, total // 2)}[slack]
+
+
+def heavy_chunk(dev, R, K, total, seed):
+    """A heavy chunk's extraction on the card: R rows at cap K holding
+    ``total`` pairs (each row K less a share of the shortfall, drawn)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    short = rng.multinomial(R * K - total, np.full(R, 1.0 / R))
+    counts = torch.from_numpy((K - short).astype(np.int32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = 1 << 18
+    grow = torch.randperm(G, generator=g, device=dev)[:R].to(torch.int32)
+    cand = torch.randint(0, G, (R, K), generator=g, device=dev,
+                         dtype=torch.int32)
+    return grow, cand, counts, G
+
+
+def fill_row(label, args, pair_cap, G):
+    """The fill kernel at one shape: bit-equal to its plain twin and to
+    the cummax form on the card, then the wrapper's mean ms (CUDA
+    events; the row bounds' prefix sum and the kernel), the twin's and
+    the cummax form's, and the least time of the bytes (8 written a
+    slot, a candidate read a pair, a row's id and bound read once, at
+    HBM rate).  Returns the ``kernels`` entry."""
+    import torch
+
+    from pandelos_tpu_torch.ops import flat_pairs as fp
+
+    rows = fp._rows(*args)
+    R, K = rows[1].shape
+    total = int(rows[2][-1]) if R else 0
+    got = fp.flat_pairs(*args, pair_cap, G)
+    torch.cuda.synchronize()  # a fault in the kernel shows here
+    for other, what in ((fp.flat_pairs_plain(*rows, pair_cap, G), "plain"),
+                        (cummax_pairs(*args, pair_cap, G), "cummax")):
+        for a, b in zip(got, other):
+            if not torch.equal(a, b):
+                raise AssertionError(f"flat_pairs != {what} at {label}")
+    # the slower forms first: the kernel's reps then find the card's
+    # clocks up
+    plain_ms = cuda_ms(lambda: fp.flat_pairs_plain(*rows, pair_cap, G), 3)
+    cummax_ms = cuda_ms(lambda: cummax_pairs(*args, pair_cap, G), 3)
+    ms = cuda_ms(lambda: fp.flat_pairs(*args, pair_cap, G), reps=50)
+    nbytes = 8 * pair_cap + 4 * min(total, pair_cap) + 12 * R
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(25, f"flat_pairs {label} (R {R}, K {K}, pairs {total}, pair_cap "
+        f"{pair_cap}): bit-equal to plain and to the cummax form; kernel "
+        f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; "
+        f"{100 * bound_ms / ms:.2f} %), plain {plain_ms:.4f} ms, cummax "
+        f"{cummax_ms:.4f} ms")
+    return {
+        "name": "flat_pairs", "shape": label, "route": "cuda",
+        "source": "pandelos_tpu_torch/csrc/flat_pairs.cu",
+        "replaces": "none (pandelos_tpu/ops/candidate.py "
+                    "_flatten_join_program fills with XLA ops)",
+        "launches": None, "max_abs_err": 0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        # the library ops it replaced: scatter-max, torch.cummax, gathers
+        "library_ms": cummax_ms,
+    }
+
+
+def fill_phase(dev):
+    """Phase 25, before the paths: the fill kernel on the card against
+    its plain twin and the cummax form, bit for bit, on FILL_CASES and
+    the tile cases at three pair_caps each (after a synchronize), then
+    :func:`fill_row` at the heavy chunks of FILL_CHUNKS.  The main list's
+    row follows phase 6, on the inputs that run gave the kernel."""
+    import torch
+
+    from pandelos_tpu_torch.ops import flat_pairs as fp
+
+    cases = {**FILL_CASES, **fill_tile_cases()}
+    n = 0
+    for name, make in cases.items():
+        args = [t.to(dev) for t in make()]
+        for slack in FILL_SLACKS:
+            pair_cap = fill_pair_cap(*args, slack)
+            got = fp.flat_pairs(*args, pair_cap, FILL_G)
+            torch.cuda.synchronize()
+            want = cummax_pairs(*args, pair_cap, FILL_G)
+            plain = fp.flat_pairs_plain(*fp._rows(*args), pair_cap, FILL_G)
+            for g, w, p in zip(got, want, plain):
+                if not (torch.equal(g, w) and torch.equal(g, p)):
+                    raise AssertionError(
+                        f"flat_pairs != plain or cummax at {name} {slack}")
+            n += 1
+    log(25, f"flat_pairs: {n} edge and tile cases ({len(cases)} x "
+        f"{FILL_SLACKS}), each bit-equal to plain and to the cummax form "
+        f"after a synchronize")
+    rows = []
+    for seed, (label, (R, K, total, pair_cap)) in enumerate(
+            FILL_CHUNKS.items()):
+        grow, cand, counts, G = heavy_chunk(dev, R, K, total, 25 + seed)
+        rows.append(fill_row(label, (grow, cand, counts), pair_cap, G))
+        del grow, cand, counts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_fills(name, res, joins):
+    """Each flat pair list a run joins is filled by the fill kernel
+    first: its launches since :func:`zero_launches` must equal the join
+    kernels' (``joins``) and the sum of the spans' ``fill_launches``."""
+    from pandelos_tpu_torch.ops.flat_pairs import flat_pairs
+
+    n = flat_pairs.launches
+    spans = sum(s["counters"].get("fill_launches", 0) for s in res.spans)
+    if n != sum(joins.values()) or spans != n:
+        raise AssertionError(f"{name}: fill kernel launches {n}, spans' "
+                             f"fill_launches {spans}, join launches {joins}")
+    return n
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -987,6 +1246,7 @@ def main() -> int:
     del args
     log(3, f"launches in phase 3 (kernel checks, not a path): {launches()}")
     index_rows = index_phase(dev)
+    fill_rows = fill_phase(dev)
     if sys.argv[1:] == ["--kernels-only"]:
         return 0
 
@@ -1027,6 +1287,7 @@ def main() -> int:
             loader.CALLS[k] = 0
         res, wall, _ = run(MAIN, outdir, capture=cap)
         n6 = launches()
+        n6_fill = check_fills(MAIN, res, n6)
         n6_index = ki.kmer_index.launches
         peak6 = torch.cuda.max_memory_allocated(dev)
         native = dict(loader.CALLS)
@@ -1047,13 +1308,18 @@ def main() -> int:
                                  f"not one build ({per_build} in phase 24)")
         for r in index_rows:
             r["launches"] = n6_index
+        fill_span = [s["counters"].get("fill_launches") for s in res.spans
+                     if s["name"] == "flatten_join"]
+        if n6_fill != 1 or fill_span != [1]:
+            raise AssertionError(f"main path fill launches {n6_fill}, "
+                                 f"flatten_join's {fill_span}: want 1")
         got6 = check_targets(MAIN, res)
         log(6, f"{MAIN} .net/.clus byte-identical to golden; n_cells "
             f"{got6['n_cells']} / {MAIN_TARGETS['n_cells']}, edges "
             f"{got6['edges']} / {MAIN_TARGETS['edges']}, families "
             f"{got6['families']} / {MAIN_TARGETS['families']}; launches "
-            f"{n6}, kmer_index {n6_index}; native calls {native}; wall "
-            f"{wall:.2f}s")
+            f"{n6}, kmer_index {n6_index}, flat_pairs {n6_fill}; native "
+            f"calls {native}; wall {wall:.2f}s")
         log(6, "phase_times " + json.dumps(
             {k: round(v, 4) for k, v in res.phase_times.items()}))
         log(6, "device phases " + json.dumps(net["phase_s"]))
@@ -1115,6 +1381,14 @@ def main() -> int:
 
         # the lane2 kernel at the main path's shapes: parity, time, bound
         entries["lane2"] = (n6["lane2"], check_captured("lane2", cap, MAIN))
+        # 25. the fill kernel on the main list's inputs of phase 6
+        (grow, cand, counts), pair_cap = cap["fill"]
+        fill_rows.insert(0, fill_row(f"{MAIN} main list",
+                                     (grow, cand, counts), pair_cap,
+                                     runner.G))
+        for r in fill_rows:
+            r["launches"] = n6_fill
+        del grow, cand, counts
         del cap, runner, T, sig_p, S, Pm
         torch.cuda.empty_cache()
 
@@ -1125,6 +1399,7 @@ def main() -> int:
         res, wall, _ = run(MAIN, outdir, capture=cap, tag="_cells",
                            join_kernel="lane", device_bbh=False)
         n8 = launches()
+        check_fills(f"{MAIN}_cells", res, n8)
         if n8["lane"] < 1 or n8["lane2"] or n8["roll"]:
             raise AssertionError(f"cells path launches {n8}: lane only")
         got8 = check_targets(MAIN, res)
@@ -1142,6 +1417,7 @@ def main() -> int:
         res, wall, _ = run(MAIN, outdir, capture=cap, tag="_roll",
                            join_kernel="roll")
         n9 = launches()
+        check_fills(f"{MAIN}_roll", res, n9)
         if n9["roll"] < 1 or n9["lane2"] or n9["lane"]:
             raise AssertionError(f"roll path launches {n9}: pair join only")
         got9 = check_targets(MAIN, res)
@@ -1164,6 +1440,7 @@ def main() -> int:
         res, wall, ref = run(MAIN, outdir, capture=cap, tag="_tract",
                              golden=False, dataset=ds, k=6)
         n10 = launches()
+        check_fills(f"{MAIN}_tract", res, n10)
         idx = cap["index"]
         if int(idx.profile_counts.max()) < 256:
             raise AssertionError("the derived input packs")
@@ -1201,6 +1478,7 @@ def main() -> int:
         res2, wall2, _ = run(MAIN, outdir, tag="_tract_roll", golden=ref,
                              dataset=ds, k=6, join_kernel="roll")
         n10r = launches()
+        check_fills(f"{MAIN}_tract_roll", res2, n10r)
         if n10r["roll"] < 1:
             raise AssertionError(f"fallback roll run launches {n10r}")
         log(10, f"{MAIN} + poly-Q/N tracts on proteins {tracts} (max 6-mer "
@@ -1238,6 +1516,7 @@ def main() -> int:
             n = launches()
             if any(n.values()):
                 raise AssertionError(f"{tag}: join kernels launched {n}")
+            check_fills(tag, res, n)
             got = check_targets(MAIN, res)
             net = res.stats["network"]
             peak = torch.cuda.max_memory_allocated(dev)
@@ -1384,6 +1663,7 @@ def main() -> int:
             "library_ms": None,
         })
     out.extend(index_rows)
+    out.extend(fill_rows)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,7 +25,8 @@ signatures:
    of every row in ascending column order, and each row's candidate
    count (rows with count > K are rerun at a larger K by the caller).
 4. **Flatten + join + validity** (``Runner.flatten_join``, backend
-   ``"cuda"``): the per-row lists become one flat pair list; the selected
+   ``"cuda"``): the per-row lists become one flat pair list
+   (``ops/flat_pairs.py``: ``csrc/flat_pairs.cu`` on a card); the selected
    CUDA join kernel (``Runner.join_kernel``: lane2, lane or roll) joins
    every pair exactly; the reference's validity test is applied.
 4'. **In-scan join** (``_join_slots``, backend ``"xla"``): the exact
@@ -64,6 +65,7 @@ from pandelos_tpu_torch.device import (
 )
 from pandelos_tpu_torch.index import KmerIndex
 from pandelos_tpu_torch.oracle.cells import ScoreCells, cells_of_rows
+from pandelos_tpu_torch.ops.flat_pairs import flat_pairs
 from pandelos_tpu_torch.ops.score import (
     _round_up,
     _width_buckets,
@@ -643,45 +645,20 @@ class Runner:
         nf = np.where(counts_h > cand_cap, 0, counts_h)
         return nf.reshape(self.n_dev, -1).sum(axis=1, dtype=np.int64)
 
-    def flatten_join(self, grow, cand, counts, cand_cap: int, pair_cap: int):
+    def flatten_join(self, grow, cand, counts, cand_cap: int, pair_cap: int,
+                     launched=None):
         """One shard's step: compact its (cand, counts) extraction output
         into a flat pair list, join every pair with ``join_kernel`` and
         apply the reference's validity test (library.cpp:499-500, exact
         integer form).  Overflowing rows (counts > cand_cap) emit nothing.
         Runs on the device of ``grow``; any leading axes (blocks, ring
-        steps) flatten row-major.
+        steps) flatten row-major.  ``launched``, a list, gets a 1 for each
+        launch of the fill kernel.
 
         Returns [pair_cap] tensors (pi, pj, inter, perc, tr, valid);
         padding slots carry pi == pj == G (an empty profile, depth 0)."""
         dev = grow.device
-        K = cand.shape[-1]
-        gf = grow.reshape(-1)
-        cf = cand.reshape(-1, K)
-        nf = counts.reshape(-1)
-        nf = torch.where(nf > K, torch.zeros_like(nf), nf)
-        cs = torch.cumsum(nf, 0, dtype=torch.int64)
-        total = cs[-1]
-        p = torch.arange(pair_cap, dtype=torch.int64, device=dev)
-        # row of pair slot p: every row with candidates marks its index
-        # at its exclusive base; a running max fills the row's slot range.
-        # JAX drops out-of-range scatter indices (.at[].max(mode="drop"));
-        # torch would fault, so they are removed first.
-        b = cs - nf
-        row_ids = torch.arange(gf.shape[0], dtype=torch.int64, device=dev)
-        sel = (nf > 0) & (b < pair_cap)
-        marks = torch.zeros(pair_cap, dtype=torch.int64, device=dev)
-        marks.scatter_reduce_(0, b[sel], row_ids[sel], "amax")
-        r = torch.cummax(marks, 0).values
-        r_safe = torch.clamp(r, max=gf.shape[0] - 1)
-        base = torch.where(
-            r_safe > 0, cs[torch.clamp(r_safe - 1, min=0)],
-            torch.zeros_like(r_safe),
-        )
-        s = torch.clamp(p - base, 0, K - 1)
-        ok = p < total
-        pad = torch.full((pair_cap,), self.G, dtype=torch.int32, device=dev)
-        pi = torch.where(ok, gf[r_safe].to(torch.int32), pad)
-        pj = torch.where(ok, cf[r_safe, s].to(torch.int32), pad)
+        pi, pj = flat_pairs(grow, cand, counts, pair_cap, self.G, launched)
         inter, perc, tr = self.join(pi, pj)
         k2f = float(self.k2)
         col_lens = self.on("col_lens", dev)
@@ -693,13 +670,21 @@ class Runner:
 
     def flatten_join_shards(self, outs, cand_cap: int, pair_cap: int):
         """:meth:`flatten_join` of every local shard's (grow, cand,
-        counts); a list, one entry a local shard."""
+        counts); a list, one entry a local shard.  The fill kernel's
+        launches are added to the current span's ``fill_launches``."""
         for dev in self.shards.devices:  # tables first, outside threads
             for name in ("col_lens", "join_table") + (
                     () if self.join_kernel == "roll" else ("dg",)):
                 self.on(name, dev)
-        return self.shards.map(
-            lambda o: self.flatten_join(*o, cand_cap, pair_cap), outs)
+
+        def one(o):
+            launched = []
+            return (self.flatten_join(*o, cand_cap, pair_cap, launched),
+                    len(launched))
+
+        done = self.shards.map(one, outs)
+        tracing.add("fill_launches", sum(n for _, n in done))
+        return [out for out, _ in done]
 
 
 def _runner_key(padded, config, shards) -> tuple:

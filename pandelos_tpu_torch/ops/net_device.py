@@ -456,6 +456,7 @@ def _heavy_pass(index, runner, shards, over_rows, over_counts,
     layouts, cells = [], [[] for _ in shards.devices]
     joined0 = [] if keep_joined else None
     pairs, start, kept = 0, 0, 0
+    sp.set("fill_launches", 0)  # flatten_join_shards adds its launches
     while start < len(order):
         K = _round_up(int(most[order[start]]), 128)
         n = max(row_block, slots // K // row_block * row_block)
@@ -611,9 +612,10 @@ def compute_network_device(
     ``capture``, when given, receives the runner and the extraction
     layout, and under backend ``"cuda"`` the join's kernel name, inputs
     and outputs of the first local shard (the table that kernel read,
-    depths, pair lists, counters), so that a caller can check and time
-    the kernel and the bound bits at the shapes of this run, and every
-    shard's pair total (``pairs_per_shard``).
+    depths, pair lists, counters; ``fill``, the main list's extraction
+    and ``pair_cap``), so that a caller can check and time the kernels
+    and the bound bits at the shapes of this run, and every shard's pair
+    total (``pairs_per_shard``).
 
     The engine's sub-phases are spans of :mod:`pandelos_tpu_torch.tracing`
     under the caller's (``setup.pad_profiles``, ``setup.runner``,
@@ -777,8 +779,10 @@ def compute_network_device(
             sp.set("launches", shards.n_local)  # a join kernel a shard
             flat = runner.flatten_join_shards(outs, K, pair_cap)
         if capture is not None:
+            # shard 0's main list: the fill's inputs and its pair_cap
             capture.update(join_kernel=runner.join_kernel,
-                           table=runner.join_table, dg=runner.dg)
+                           table=runner.join_table, dg=runner.dg,
+                           fill=(outs[0], pair_cap))
         if capture is not None and joined0 is not None:
             fpi, fpj, fi, fp, ft = flat[0][:5]
             if joined0:

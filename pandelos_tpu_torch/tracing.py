@@ -139,6 +139,14 @@ def span(name: str, **counters) -> Span:
     return Span(name, counters)
 
 
+def add(key: str, value) -> None:
+    """Add ``value`` to the counter ``key`` of the current span (none
+    outside a span), for code that is not handed its span."""
+    sp = _current.get()
+    if sp is not None:
+        sp.add(key, value)
+
+
 @contextmanager
 def job():
     """A job: a fresh span tree and clock anchor for the body."""

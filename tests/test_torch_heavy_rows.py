@@ -130,6 +130,8 @@ def test_heavy_rows_stay_on_the_device_path(name, expected, monkeypatch,
     # slots (at most 12 blocks of 16 rows, 8 slots each): 16 rows a chunk
     assert heavy["K"] == 128 and heavy["chunks"] == -(-rows // 16)
     assert CAP * rows < heavy["pairs"] <= 12 * rows
+    # the fill kernel runs on a card only (test_torch_kernels_on_card.py)
+    assert heavy["fill_launches"] == 0
     assert net["phase_s"]["extract.heavy"] > 0
 
 

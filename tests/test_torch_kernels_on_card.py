@@ -2,6 +2,8 @@
 PyTorch version bit for bit (seeded tables, then adversarial tables and
 pair lists), the k-mer index build against its plain version and the
 NumPy build (seeded, adversarial and the xanthomonas14 preset's data),
+the flat pair list's fill against its plain twin and the cummax
+formulation it replaced (edge cases, tiles, a heavy chunk's scale),
 the wrappers' refusals, no fallback when a kernel cannot load, and the
 engine's paths to the goldens through the kernels.  Every test needs an
 NVIDIA card and skips without one.  The file imports neither JAX nor
@@ -18,6 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    FILL_CASES,
+    FILL_G,
+    FILL_SLACKS,
+    cummax_pairs,
+    fill_pair_cap,
+    fill_tile_cases,
+)
 from pandelos_tpu_torch import kernels
 from pandelos_tpu_torch.config import PipelineConfig
 from pandelos_tpu_torch.index import (
@@ -26,6 +36,7 @@ from pandelos_tpu_torch.index import (
     build_index,
 )
 from pandelos_tpu_torch.io.faa import FaaDataset
+from pandelos_tpu_torch.ops import flat_pairs as tfp
 from pandelos_tpu_torch.ops import kmer_index as tki
 from pandelos_tpu_torch.ops import lane_join as tlj
 from pandelos_tpu_torch.ops import pair_join as tpj
@@ -175,6 +186,8 @@ def test_card_calls_raise_when_a_kernel_cannot_load(card, monkeypatch):
         tpj.join_pairs_core(table, z, z)
     with pytest.raises(RuntimeError, match="cannot load pair_join"):
         tpj.join_pairs(table, np.zeros(3, np.int64), np.ones(3, np.int64))
+    with pytest.raises(RuntimeError, match="cannot load flat_pairs"):
+        tfp.flat_pairs(z, table, z, 8, 4)
 
 
 @pytest.mark.cuda
@@ -342,3 +355,77 @@ def test_default_pipeline_builds_the_index_on_card(card, tmp_path):
         assert filecmp.cmp(prefix + suffix,
                            os.path.join(GOLDEN, "synth_small" + suffix),
                            shallow=False), suffix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FILL_CASES) + sorted(
+    fill_tile_cases()))
+@pytest.mark.parametrize("slack", FILL_SLACKS)
+def test_flat_pairs_kernel_matches_plain_and_cummax(card, name, slack):
+    """The fill kernel's pi and pj are bit-equal to its plain twin and to
+    the cummax formulation it replaced, also where padding follows the
+    pairs (``padded``) and where the list cuts them (``cut``)."""
+    grow, cand, counts = {**FILL_CASES, **fill_tile_cases()}[name]()
+    args = [t.to(card) for t in (grow, cand, counts)]
+    pair_cap = fill_pair_cap(*args, slack)
+    launches, launched = tfp.flat_pairs.launches, []
+    got = tfp.flat_pairs(*args, pair_cap, FILL_G, launched)
+    torch.cuda.synchronize()  # a fault in the kernel shows here
+    assert tfp.flat_pairs.launches == launches + 1 and launched == [1]
+    plain = tfp.flat_pairs_plain(*tfp._rows(*args), pair_cap, FILL_G)
+    for g, p, w in zip(got, plain,
+                       cummax_pairs(*args, pair_cap, FILL_G)):
+        assert g.dtype == torch.int32 and g.shape == (pair_cap,)
+        assert torch.equal(g, p)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_flat_pairs_kernel_at_a_heavy_chunks_scale(card):
+    """One escherichia30-sized heavy chunk: 512 rows at a cap of 75,008
+    (counts up to the cap, a tenth past it), pair_cap 2^25."""
+    g = torch.Generator(device=card).manual_seed(20)
+    R, K = 512, 75008
+    counts = torch.randint(0, K + 1, (R,), generator=g, device=card,
+                           dtype=torch.int32)
+    counts[torch.randint(0, R, (R // 10,), generator=g, device=card)] = K + 7
+    grow = torch.randperm(FILL_G, generator=g, device=card)[:R].to(
+        torch.int32)
+    cand = torch.randint(0, 143360, (R, K), generator=g, device=card,
+                         dtype=torch.int32)
+    total = int(torch.where(counts > K, 0, counts).sum())
+    pair_cap = 1 << 25
+    assert pair_cap // 2 < total <= pair_cap
+    got = tfp.flat_pairs(grow, cand, counts, pair_cap, FILL_G)
+    torch.cuda.synchronize()
+    plain = tfp.flat_pairs_plain(*tfp._rows(grow, cand, counts), pair_cap,
+                                 FILL_G)
+    want = cummax_pairs(grow, cand, counts, pair_cap, FILL_G)
+    for x, p, w in zip(got, plain, want):
+        assert torch.equal(x, p) and torch.equal(x, w)
+
+
+@pytest.mark.cuda
+def test_engine_fills_its_pair_lists_on_card(card, tmp_path, monkeypatch):
+    """Every flat pair list of a card run is filled by the kernel: one
+    launch on ``flatten_join`` and, where rows pass the cap and take the
+    heavy-row pass, one a chunk on ``extract.heavy``; the outputs stay the
+    goldens."""
+    from pandelos_tpu_torch.ops import net_device
+
+    monkeypatch.setattr(net_device, "MAX_CANDIDATE_CAP", 8)
+    for cap in (64, 2):  # no row past the cap; rows past it
+        prefix = str(tmp_path / f"synth_small_{cap}")
+        res = run_pipeline(os.path.join(GOLDEN, "synth_small.faa"), prefix,
+                           PipelineConfig(row_block=16, col_block=128,
+                                          candidate_cap=cap))
+        by = {s["name"]: s for s in res.spans}
+        assert by["flatten_join"]["counters"]["fill_launches"] == 1
+        heavy = by.get("extract.heavy")
+        if cap == 2:
+            counters = heavy["counters"]
+            assert counters["fill_launches"] == counters["chunks"] > 0
+        for suffix in (".net", ".clus"):
+            assert filecmp.cmp(prefix + suffix,
+                               os.path.join(GOLDEN, "synth_small" + suffix),
+                               shallow=False), suffix

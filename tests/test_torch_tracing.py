@@ -112,6 +112,8 @@ def test_engine_counters_and_waits():
     assert by["extract"]["counters"]["K"] == net["candidate_cap_final"]
     assert by["flatten_join"]["counters"]["pair_cap"] == net["pair_cap"]
     assert by["flatten_join"]["counters"]["launches"] == 1
+    # the fill kernel runs on a card only (test_torch_kernels_on_card.py)
+    assert by["flatten_join"]["counters"]["fill_launches"] == 0
     assert by["plan"]["counters"]["planned_peak_bytes"] == \
         net["planned_peak_bytes"]
     assert by["bbh"]["counters"]["edge_cap"] == net["edge_cap"]
@@ -129,6 +131,19 @@ def test_engine_counters_and_waits():
     assert by["k_select"]["counters"] == {"k": res.k}
     assert by["index"]["counters"]["vocab_size"] == \
         res.stats["vocab_size"]
+
+
+@pytest.mark.parametrize("opts", [
+    {"device_bbh": False},
+    {"device_bbh": False, "ring_extract": True, "n_devices": 2},
+], ids=["cells", "ring_cells"])
+def test_cells_paths_count_fill_launches_on_score(opts):
+    """The cells path and the ring's fill their flat pair lists inside
+    ``score``, which counts the fill kernel's launches (0 on the CPU)."""
+    res = run_pipeline(SMALL, None, _cfg(**opts))
+    by = {s["name"]: s for s in res.spans}
+    assert by["score"]["counters"]["fill_launches"] == 0
+    assert "flatten_join" not in by
 
 
 def test_net_write_counts_its_bytes(tmp_path):
